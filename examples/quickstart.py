@@ -1,6 +1,7 @@
 """mcray_tpu quickstart: render, sweep, differentiate, shard.
 
-Run from the repo root (CPU works everywhere; drop force_cpu on a TPU host):
+Run from the repo root (on the CPU with 8 virtual devices; drop force_cpu to
+run on a GPU host):
 
     python examples/quickstart.py
 """
@@ -12,7 +13,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-jax.config.update("jax_platforms", "cpu")  # force_cpu: see README platform note
+jax.config.update("jax_platforms", "cpu")  # force_cpu
 os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
 
 import jax.numpy as jnp
@@ -55,7 +56,7 @@ def main():
     def render(k, m):
         return sim._render(
             k, m, jnp.asarray(pack.transducer_position),
-            jnp.asarray(pack.transducer_angles), hash(cfg),
+            jnp.asarray(pack.transducer_angles),
         )["bmode"]
 
     target = render(key, sim.materials)

@@ -1,4 +1,4 @@
-"""mcray_tpu — TPU-native Monte-Carlo ray-tracing ultrasound simulation.
+"""mcray_tpu — differentiable Monte-Carlo ray-tracing ultrasound simulation.
 
 A from-scratch JAX/XLA/Pallas framework with the capabilities of the
 thepochynsons/MCRay-Tracing reference (Mattausch & Goksel 2016 interactive
@@ -6,7 +6,7 @@ ultrasound simulation): convex-probe acoustic path tracing through triangle
 meshes, stochastic boundary physics, scatterer-texture echo accumulation, PSF
 convolution, envelope detection and polar->Cartesian scan conversion — plus
 what the reference lacks: determinism, differentiability w.r.t. materials and
-probe pose, multi-chip sharding, tests and benchmarks.
+probe pose, multi-device sharding, tests and benchmarks.
 """
 
 from .config import SimConfig, DEFAULT_CONFIG, small_test_config

@@ -61,7 +61,7 @@ class SimConfig:
     bmode_cols: int = 500
 
     # Scatterer field backend: "procedural" (hash-based on-the-fly N(0,1),
-    # zero HBM traffic, the TPU-native default) or "table" (materialised
+    # no memory traffic, the default) or "table" (materialised
     # voxel grid mirroring the reference's volume<256,145>).
     texture_mode: str = "procedural"
     # Per-voxel N(0,1) generator for the procedural field (and hence the
@@ -70,13 +70,11 @@ class SimConfig:
     #   popcount of 16 hash bits + a 16-bit uniform dither, zero
     #   transcendentals. Exact mean/variance, symmetric, excess kurtosis
     #   -0.12, support ±4.2σ; CDF within ~7e-3 of Φ (distributional
-    #   validation in tests/test_texture.py; B-mode statistics and measured
-    #   march speedups — 1.3-1.4× nearest, 2.3× trilinear+soft — in
-    #   BASELINE.md). The reference's own field is an implementation-defined
-    #   engine matched statistically, not bitwise (src/volume.h:19-35,
-    #   SURVEY.md §4), so this stays within the declared parity contract.
-    # - "boxmuller": log+sqrt+cos+sin per voxel pair — exact normals; the
-    #   r4 march kernel ran at ~15% of VPU peak on exactly these four ops.
+    #   validation in tests/test_texture.py). The reference's own field is
+    #   an implementation-defined engine matched statistically, not bitwise
+    #   (src/volume.h:19-35, SURVEY.md §4), so this stays within the
+    #   declared parity contract.
+    # - "boxmuller": log+sqrt+cos+sin per voxel pair — exact normals.
     # Changing this changes the realised speckle bit-stream (like reseeding).
     scatter_rng: str = "bitsum"
 
@@ -125,6 +123,13 @@ class SimConfig:
     # loops all 10 depths); on ircad_hd this flag empties bounce depths >= 6.
     # Off for the trace-loop oracle test, which ports the reference verbatim.
     cull_time_window: bool = True
+
+    def __post_init__(self):
+        if self.scatter_rng not in ("bitsum", "boxmuller"):
+            raise ValueError(
+                f"unknown scatter_rng {self.scatter_rng!r}; expected "
+                "'bitsum' or 'boxmuller'"
+            )
 
     # ------------------------------------------------------------------
     # Derived quantities (all pure functions of the fields above).

@@ -1,6 +1,6 @@
 """Flat BVH: host-side build, device-side traversal.
 
-TPU-native replacement for Bullet's btBvhTriangleMeshShape + btDbvtBroadphase
+Array-program replacement for Bullet's btBvhTriangleMeshShape + btDbvtBroadphase
 (reference: src/scene.cpp:306-309, :115-117). The *builder* runs on host —
 in C++ (native/mcray_native.cpp, binned SAH) when built, else this numpy
 median-split fallback — and emits a pointerless flat array layout:
@@ -15,7 +15,7 @@ median-split fallback — and emits a pointerless flat array layout:
 Traversal on device is a fixed-size explicit stack inside
 ``lax.while_loop`` — compiler-friendly control flow instead of pointer
 chasing. The brute-force path in ops/geometry.py remains the default for
-small scenes (pure VPU streaming beats divergent traversal there).
+small scenes (dense streaming beats divergent traversal there).
 """
 
 from __future__ import annotations
@@ -156,39 +156,31 @@ def bvh_intersect_closest(
             m = jax.lax.dynamic_slice(meta, (node, 0), (1, 2))[0]
             is_leaf = m[1] >= 0
 
-            def visit_leaf(args):
-                best_t, best_i = args
-                first = m[0]
+            # masked, not lax.cond: under vmap a cond with a per-ray
+            # predicate turns into a select that broadcasts every operand it
+            # closes over (the whole triangle table) to the batch
+            visit = hit_box & is_leaf
+            first = m[0]
 
-                def tri_body(k, carry):
-                    bt, bi = carry
-                    j = jnp.minimum(first + k, t_total - 1)
-                    in_range = k < m[1]
-                    t, valid = _moller_trumbore(origin, seg, v0[j], e1[j], e2[j])
-                    valid = valid & in_range & (t < bt)
-                    return (jnp.where(valid, t, bt), jnp.where(valid, j, bi))
+            def tri_body(k, carry):
+                bt, bi = carry
+                j = jnp.clip(first + k, 0, t_total - 1)
+                t, valid = _moller_trumbore(origin, seg, v0[j], e1[j], e2[j])
+                valid = valid & visit & (k < m[1]) & (t < bt)
+                return (jnp.where(valid, t, bt), jnp.where(valid, j, bi))
 
-                return jax.lax.fori_loop(0, leaf_size, tri_body, (best_t, best_i))
-
-            def skip(args):
-                return args
-
-            best_t, best_i = jax.lax.cond(
-                hit_box & is_leaf, visit_leaf, skip, (best_t, best_i)
+            best_t, best_i = jax.lax.fori_loop(
+                0, leaf_size, tri_body, (best_t, best_i)
             )
             push_children = hit_box & ~is_leaf
             # Push right child then left so left (node+1) pops first.
-            stack = jax.lax.cond(
-                push_children,
-                lambda s: jax.lax.dynamic_update_index_in_dim(
-                    jax.lax.dynamic_update_index_in_dim(s, m[0], sp, 0),
-                    node + 1,
-                    sp + 1,
-                    0,
-                ),
-                lambda s: s,
-                stack,
+            pushed = jax.lax.dynamic_update_index_in_dim(
+                jax.lax.dynamic_update_index_in_dim(stack, m[0], sp, 0),
+                node + 1,
+                sp + 1,
+                0,
             )
+            stack = jnp.where(push_children, pushed, stack)
             sp = jnp.where(push_children, sp + 2, sp)
             return (sp, stack, best_t, best_i)
 

@@ -1,11 +1,11 @@
 """Vector math and ray-triangle intersection.
 
-TPU-native replacement for the reference's Bullet vector math and BVH ray
+Array-program replacement for the reference's Bullet vector math and BVH ray
 casts (reference: src/scene.cpp:115-117, Bullet btVector3 used throughout
 src/ray.cpp). Everything here is pure jax.numpy on packed SoA arrays: rays are
 ``(N, 3)`` float32 tensors, triangles a ``(T, 3, 3)`` tensor, and the closest
 hit is a masked min-reduction — no data-dependent control flow, so XLA can
-fuse and tile the whole test onto the VPU.
+fuse and tile the whole test.
 """
 
 from __future__ import annotations
@@ -111,8 +111,8 @@ def intersect_closest(
     (reference: src/scene.cpp:115-126) — and ``mesh_id``.
 
     ``chunk`` > 0 loops over triangle chunks with ``lax.scan`` to bound peak
-    memory at (N * chunk) — used for large scenes and on CPU tests; the Pallas
-    kernel in ops/pallas/intersect.py is the tuned TPU path.
+    memory at (N * chunk); the listed Pallas kernel in ops/pallas/intersect.py
+    is the large-scene GPU path (paths.choose_paths).
     """
     v0 = tris[:, 0]
     e1 = tris[:, 1] - tris[:, 0]

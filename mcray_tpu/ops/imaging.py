@@ -1,10 +1,9 @@
 """RF image pipeline: echo accumulation, PSF convolution, envelope detection,
 scan conversion.
 
-TPU-native rebuild of the reference's rf_image<cols, max_t, axial_res>
+Array-program rebuild of the reference's rf_image<cols, max_t, axial_res>
 (reference: src/rfimage.h). The per-echo ``+=`` becomes a masked scatter-add;
-the two nested convolution loops become sliced tensor contractions XLA fuses
-on the VPU; the sequential per-column peak walk of ``envelope()`` is
+the two nested convolution loops become sliced tensor contractions XLA fuses; the sequential per-column peak walk of ``envelope()`` is
 re-derived as a closed-form parallel prefix (peaks are exactly the
 rise-then-non-rise samples, see proof in ``envelope``); ``cv::remap`` scan
 conversion becomes a precomputed gather map + bilinear ``map_coordinates`` —
@@ -133,7 +132,7 @@ def convolve_psf_sharded(rf_local: Array, cfg: SimConfig, axis: str, n_shards: i
     The axial pass is column-local. The lateral pass reads up to l-1 columns
     to the RIGHT of each output column (the reference's forward-shifted
     kernel, src/rfimage.h:116-118), so each shard fetches an (R, l-1) halo
-    from its right neighbour with one ``ppermute`` over ICI — instead of
+    from its right neighbour with one ``ppermute`` — instead of
     gathering the whole RF image. Cells outside the reference's write window
     (global cols [l//2, C-l), rows [a, R-a)) keep their raw echo values.
     """
@@ -180,7 +179,7 @@ def convolve_psf_rows_sharded(rf_local: Array, cfg: SimConfig, axis: str, n_shar
     the RF image is sharded over rows instead of scanline columns, the
     AXIAL pass is the cross-shard one: the reference's forward-shifted 7-tap
     kernel reads rows [r, r+a) (src/rfimage.h:102-104), so each shard fetches
-    an (a-1, C) halo from the shard below it with ``ppermute`` over ICI. The
+    an (a-1, C) halo from the shard below it with ``ppermute``. The
     lateral pass and the write-window masking are then row-local.
 
     Composition matches ``_convolve_reference`` exactly: cells outside the

@@ -1,10 +1,11 @@
-"""Pallas TPU kernel: output-stationary segment march + RF accumulation,
-with a custom VJP so the differentiable fit runs on the kernel too.
+"""Pallas kernel (Triton route): output-stationary segment march + RF
+accumulation, with a custom VJP so the differentiable fit runs on the kernel
+too.
 
-The jnp path (simulator.march_and_accumulate) is scatter-based: 12M
-(segment, step) samples scatter-add into the (465, 512) RF image — measured
-~120 ms/frame on one v5e chip because XLA lowers large scatters to sorted
-serial updates, plus ~190 ms of random texture gathers.
+The jnp path (simulator.march_and_accumulate) builds a dense (D*N, K) grid of
+(segment, step) samples, most of them masked, and scatter-adds the live ones
+into the (rf_rows, rf_cols) RF image. On the GPU that scatter-add runs on
+atomics, whose summation order can change from run to run.
 
 This kernel inverts the loop (gather/output-stationary): each RF pixel
 (row r, column c) asks the <= S*D segments of its OWN column which march step
@@ -13,26 +14,34 @@ lands in row r. Because the march time step exceeds the RF row pitch
 src/rfimage.h:35), the row index floor((t0 + k*dt)/rdt) is strictly
 increasing in k — every output row receives AT MOST ONE step of a given
 segment. So the scatter is really a per-segment monotone relabelling, and
-each pixel can solve k = ceil((r - t0/rdt) / (dt/rdt)) directly. No scatter,
-no gather, no HBM traffic beyond streaming the segment table once: pure VPU
-arithmetic over (row, column) tiles, with the scatterer field evaluated
-procedurally (texture.procedural_fields, bit-identical hash).
+each pixel can solve k = ceil((r - t0/rdt) / (dt/rdt)) directly. Each RF cell
+is written by exactly one program in a fixed order: no atomics, and the frame
+is bitwise reproducible. The scatterer field is evaluated procedurally
+(texture.procedural_fields, bit-identical hash).
 
 Float candidates are verified with the *exact forward formula* the jnp path
-uses (floor(t_k / rdt) == r), so kernel and jnp outputs agree to float
-associativity.
+uses (floor(t_k / rdt) == r), so kernel and jnp outputs agree up to the
+order of the per-pixel sums.
+
+Work skipping: a segment spans ~steps*dt/rdt ~ 47 of 465 rows. A jnp prepass
+(``_row_tile_spans``) gives, per (segment, column tile), the range of row
+tiles its march rows and boundary echo can touch; a forward program skips
+every segment whose range misses its row tile, and a backward program loops
+over exactly that range.
 
 Differentiation (the reverse of the reference pipeline at
-src/main.cpp:106-149): the op carries a custom_vjp whose backward pass is a
-second Pallas kernel with the SAME loop structure — for each (segment,
-column-tile) it recomputes the matched rows and scattering terms, multiplies
-by the incoming RF cotangent and row-reduces, yielding the gradient of every
-segment SoA field in one forward-cost pass (pure rematerialisation, no
-saved intermediates). Gradients then flow through ``pack_segments`` (plain
-jnp) into the material table, the traced segments, and — in trilinear
-texture mode — the sample positions, hence the probe pose. Supported
-texture modes mirror ``texture.get_scattering`` exactly: nearest/trilinear x
-hard/soft-sigmoid gate (procedural field only).
+src/main.cpp:106-149): the backward kernel has one program per (column tile,
+segment). It loops over the segment's row tiles inside the program,
+recomputes the matched rows and scattering terms, multiplies by the incoming
+RF cotangent and row-reduces, and writes that segment's gradient slice once.
+No two programs write the same output cell, so the backward needs neither a
+zeroed output nor atomics, and does not depend on the order in which the GPU
+runs its blocks (pure rematerialisation, no saved intermediates). Gradients
+then flow through ``pack_segments`` (plain jnp) into the material table, the
+traced segments, and — in trilinear texture mode — the sample positions,
+hence the probe pose. Supported texture modes mirror
+``texture.get_scattering`` exactly: nearest/trilinear x hard/soft-sigmoid
+gate (procedural field only).
 """
 
 from __future__ import annotations
@@ -43,7 +52,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
 from ...config import SimConfig
 
@@ -52,7 +61,12 @@ F_FROM_X, F_FROM_Y, F_FROM_Z, F_DIR_X, F_DIR_Y, F_DIR_Z, F_T0, F_STEPS, \
     F_LN_ATT, F_I0, F_MU0, F_MU1, F_SIGMA, F_B_ROW, F_B_VAL, F_VALID = range(16)
 N_FIELDS = 16
 
-TILE_C = 128
+# (TILE_ROWS, TILE_C) output tile of one forward program: 1024 cells, eight
+# per thread at NUM_WARPS=4, so every per-cell temporary of the trilinear
+# texture evaluation stays in registers. Powers of two (Triton block rule).
+TILE_ROWS = 32
+TILE_C = 32
+NUM_WARPS = 4
 
 
 def _hash_i32(x):
@@ -111,21 +125,20 @@ def _scat_eval(px, py, pz, mu0, mu1, sigma, seed0, seed1, cfg: SimConfig,
     """
     res = cfg.resolution_um / 1000.0
     size = cfg.volume_size
+    pow2 = size & (size - 1) == 0
+
+    def wrap_mod(q):
+        # two's-complement AND == double-mod wrap for power-of-two sizes
+        # (bit-identical twin of texture._wrap_mod)
+        if pow2:
+            return q & jnp.int32(size - 1)
+        return jnp.mod(jnp.mod(q, size) + size, size)
 
     if cfg.trilinear_texture:
         def prep(x):
             f = x / res - 0.5
             i0 = jnp.floor(f).astype(jnp.int32)
             return i0, f - jnp.floor(f)
-
-        pow2 = size & (size - 1) == 0
-
-        def wrap_mod(q):
-            # two's-complement AND == double-mod wrap for power-of-two
-            # sizes (bit-identical twin of texture._wrap_mod)
-            if pow2:
-                return q & jnp.int32(size - 1)
-            return jnp.mod(jnp.mod(q, size) + size, size)
 
         i0x, wx = prep(px)
         i0y, wy = prep(py)
@@ -137,11 +150,8 @@ def _scat_eval(px, py, pz, mu0, mu1, sigma, seed0, seed1, cfg: SimConfig,
         for ox in (0, 1):
             for oy in (0, 1):
                 for oz in (0, 1):
-                    def wrap(i0, off):
-                        return wrap_mod(i0 + off)
-
                     n_t, p_t = _voxel_fields(
-                        wrap(i0x, ox), wrap(i0y, oy), wrap(i0z, oz),
+                        wrap_mod(i0x + ox), wrap_mod(i0y + oy), wrap_mod(i0z + oz),
                         seed0, seed1, size, rng=cfg.scatter_rng,
                     )
                     wfx = wx if ox else 1.0 - wx
@@ -160,13 +170,8 @@ def _scat_eval(px, py, pz, mu0, mu1, sigma, seed0, seed1, cfg: SimConfig,
                         dp_dw[1] += p_t * sy * wfx * wfz
                         dp_dw[2] += p_t * sz * wfx * wfy
     else:
-        pow2 = size & (size - 1) == 0
-
         def wrap(x):
-            q = jnp.trunc(x / res).astype(jnp.int32)
-            if pow2:  # AND == double-mod wrap (texture._wrap_mod twin)
-                return q & jnp.int32(size - 1)
-            return jnp.mod(jnp.mod(q, size) + size, size)
+            return wrap_mod(jnp.trunc(x / res).astype(jnp.int32))
 
         noise, prob = _voxel_fields(
             wrap(px), wrap(py), wrap(pz), seed0, seed1, size,
@@ -227,206 +232,146 @@ def _match_rows(rows_f, t0, steps, valid, row_ok, cfg: SimConfig):
     return matched & valid & row_ok, k_sel
 
 
-TILE_ROWS = 64  # forward kernel's output row tile
+def _segment_fields(seg_ref, s, c0):
+    """The 16 SoA fields of segment ``s`` over this program's column tile,
+    each as a (1, TILE_C) row (one dynamic row load per field)."""
+    return [seg_ref[s, f, pl.ds(c0, TILE_C)][None, :] for f in range(N_FIELDS)]
 
 
-def _march_kernel(counts_ref, ids_ref, seeds_ref, seg_ref, out_ref, *, cfg: SimConfig):
-    """Forward kernel, span-listed: one program per (column-tile, row-tile),
-    looping ONLY over the segments whose march row span (or boundary-echo
-    row) touches this row tile — the per-tile index lists are precomputed in
-    jnp (``_touch_tables``). A segment spans ~steps*dt/rdt ~ 47 of 472 rows,
-    so this skips ~5x of the scatterer evaluations (hash + Box-Muller
-    transcendentals, the kernel's dominant cost); extra list entries are
-    harmless no-ops (matched is empty outside the span), which also makes the
-    dynamic trip count safe. Bitwise-identical output to the full-height
-    formulation (one accumulation order per output cell). Measured 2.97 ->
-    2.06 ms/frame on the 512x5 sphere workload (v5e, scripts/march_tune.py)."""
+def _march_kernel(lo_ref, hi_ref, seeds_ref, seg_ref, out_ref, *, cfg: SimConfig,
+                  n_segments: int):
+    """Forward: one program per (column tile i, row tile j). Loops over the
+    column's segments, skipping those whose row-tile span misses j, and
+    writes its (TILE_ROWS, TILE_C) RF tile once."""
     axres = cfg.axial_resolution_mm
     i = pl.program_id(0)
     j = pl.program_id(1)
+    c0 = i * TILE_C
 
-    rows_i = jax.lax.broadcasted_iota(jnp.int32, (TILE_ROWS, TILE_C), 0) + j * TILE_ROWS
+    rows_i = j * TILE_ROWS + jnp.arange(TILE_ROWS, dtype=jnp.int32)[:, None]
     rows_f = rows_i.astype(jnp.float32)
     row_ok = rows_i < cfg.rf_rows
+    seed0 = seeds_ref[0]
+    seed1 = seeds_ref[1]
 
-    seed0 = seeds_ref[0, 0]
-    seed1 = seeds_ref[0, 1]
-
-    def body(it, acc):
-        seg_i = ids_ref[i, j, it]
-        blk = seg_ref[seg_i]  # one dynamic slice: (N_FIELDS, TILE_C)
-
-        def field(f):
-            return blk[f, :].reshape(1, TILE_C)
-
-        t0 = field(F_T0)
-        steps = field(F_STEPS)
-        valid = field(F_VALID) > 0.5
-        matched, k_sel = _match_rows(rows_f, t0, steps, valid, row_ok, cfg)
-
+    def accumulate(s, acc):
+        fld = _segment_fields(seg_ref, s, c0)
+        matched, k_sel = _match_rows(
+            rows_f, fld[F_T0], fld[F_STEPS], fld[F_VALID] > 0.5, row_ok, cfg
+        )
         # sample point along the segment (world units; reference treats the
         # mm-valued axial step as world units, src/main.cpp:117)
         scale = k_sel * axres
-        px = field(F_FROM_X) + scale * field(F_DIR_X)
-        py = field(F_FROM_Y) + scale * field(F_DIR_Y)
-        pz = field(F_FROM_Z) + scale * field(F_DIR_Z)
-
         scat = _scat_eval(
-            px, py, pz,
-            field(F_MU0), field(F_MU1), field(F_SIGMA),
+            fld[F_FROM_X] + scale * fld[F_DIR_X],
+            fld[F_FROM_Y] + scale * fld[F_DIR_Y],
+            fld[F_FROM_Z] + scale * fld[F_DIR_Z],
+            fld[F_MU0], fld[F_MU1], fld[F_SIGMA],
             seed0, seed1, cfg, want_grads=False,
         )["scat"]
-        intens = field(F_I0) * jnp.exp(field(F_LN_ATT) * k_sel)
+        intens = fld[F_I0] * jnp.exp(fld[F_LN_ATT] * k_sel)
         acc = acc + jnp.where(matched, intens * scat, 0.0)
-
         # boundary echo (Burger13 Eq. 10 term, reference src/main.cpp:139)
-        b_row = field(F_B_ROW)
-        acc = acc + jnp.where((rows_f == b_row) & row_ok, field(F_B_VAL), 0.0)
-        return acc
+        return acc + jnp.where((rows_f == fld[F_B_ROW]) & row_ok, fld[F_B_VAL], 0.0)
 
-    n = counts_ref[i, j]
-    out_ref[:] = jax.lax.fori_loop(
-        0, n, body, jnp.zeros((TILE_ROWS, TILE_C), jnp.float32)
+    def body(s, acc):
+        touches = (lo_ref[s, i] <= j) & (hi_ref[s, i] >= j)
+        return jax.lax.cond(
+            touches, lambda a: accumulate(s, a), lambda a: a, acc
+        )
+
+    out_ref[...] = jax.lax.fori_loop(
+        0, n_segments, body, jnp.zeros((TILE_ROWS, TILE_C), jnp.float32)
     )
 
 
-def _touch_tables(soa, cfg: SimConfig, n_rows_pad: int):
-    """Per-(column-tile, row-tile) lists of segments whose conservative march
-    row span or boundary-echo row intersects the tile. Returns
-    (counts (CT, RT) i32, ids (CT, RT, SD) i32) — ids holds the touching
-    segment indices first (ascending), then the rest (safe no-ops)."""
+def _march_bwd_kernel(lo_ref, hi_ref, seeds_ref, seg_ref, g_ref, gout_ref,
+                      *, cfg: SimConfig):
+    """Backward: one program per (column tile i, segment s). Loops over the
+    row tiles of the segment's span, recomputes the forward terms, multiplies
+    by the RF cotangent and row-reduces; then writes the segment's
+    (N_FIELDS, TILE_C) gradient slice, which no other program touches."""
+    axres = cfg.axial_resolution_mm
+    i = pl.program_id(0)
+    s = pl.program_id(1)
+    c0 = i * TILE_C
+    seed0 = seeds_ref[0]
+    seed1 = seeds_ref[1]
+    fld = _segment_fields(seg_ref, s, c0)
+    valid = fld[F_VALID] > 0.5
+    dx, dy, dz = fld[F_DIR_X], fld[F_DIR_Y], fld[F_DIR_Z]
+    grad_fields = (
+        F_FROM_X, F_FROM_Y, F_FROM_Z, F_DIR_X, F_DIR_Y, F_DIR_Z, F_LN_ATT,
+        F_I0, F_MU0, F_MU1, F_SIGMA, F_B_VAL,
+    )
+
+    def body(r, accs):
+        rows_i = r * TILE_ROWS + jnp.arange(TILE_ROWS, dtype=jnp.int32)[:, None]
+        rows_f = rows_i.astype(jnp.float32)
+        row_ok = rows_i < cfg.rf_rows
+        g = g_ref[pl.ds(r * TILE_ROWS, TILE_ROWS), pl.ds(c0, TILE_C)]
+        matched, k_sel = _match_rows(
+            rows_f, fld[F_T0], fld[F_STEPS], valid, row_ok, cfg
+        )
+        scale = k_sel * axres
+        sc = _scat_eval(
+            fld[F_FROM_X] + scale * dx,
+            fld[F_FROM_Y] + scale * dy,
+            fld[F_FROM_Z] + scale * dz,
+            fld[F_MU0], fld[F_MU1], fld[F_SIGMA],
+            seed0, seed1, cfg, want_grads=True,
+        )
+        decay = jnp.exp(fld[F_LN_ATT] * k_sel)
+        gm = jnp.where(matched, g, 0.0)
+        gi = gm * (fld[F_I0] * decay)  # cotangent routed through intens*scat
+        gpx = gi * sc["d_px"]
+        gpy = gi * sc["d_py"]
+        gpz = gi * sc["d_pz"]
+        terms = (
+            gpx, gpy, gpz, gpx * scale, gpy * scale, gpz * scale,
+            gi * k_sel * sc["scat"],
+            gm * decay * sc["scat"],
+            gi * sc["d_mu0"],
+            gi * sc["d_mu1"],
+            gi * sc["d_sigma"],
+            jnp.where((rows_f == fld[F_B_ROW]) & row_ok, g, 0.0),
+        )
+        return tuple(a + jnp.sum(t, axis=0) for a, t in zip(accs, terms))
+
+    zero = jnp.zeros((TILE_C,), jnp.float32)
+    accs = jax.lax.fori_loop(
+        lo_ref[s, i], hi_ref[s, i] + 1, body, (zero,) * len(grad_fields)
+    )
+    grads = dict(zip(grad_fields, accs))
+    for f in range(N_FIELDS):
+        gout_ref[s, f, pl.ds(c0, TILE_C)] = grads.get(f, zero)
+
+
+def _row_tile_spans(soa, cfg: SimConfig, n_row_tiles: int):
+    """Per (segment, column tile): the inclusive range [lo, hi] of row tiles
+    that the segment's march rows or boundary-echo row can touch in any
+    column of the tile (lo > hi when none). A conservative +-1-row guard
+    around the exact floor binning; the kernels' exact row match makes any
+    extra tile a no-op. Returns (lo, hi), each (SD, C_pad // TILE_C) i32."""
     rdt = cfg.rf_row_dt_us
     dt = cfg.march_dt_us
     sd, _, c_pad = soa.shape
-    c_tiles = c_pad // TILE_C
-    r_tiles = n_rows_pad // TILE_ROWS
-
     t0 = soa[:, F_T0, :]
     steps = soa[:, F_STEPS, :]
     valid = soa[:, F_VALID, :] > 0.5
-    b_row = soa[:, F_B_ROW, :]
-    # conservative +-1-row guard around the exact floor binning
-    seg_r0 = jnp.floor(t0 / rdt) - 1.0
-    seg_r1 = jnp.floor((t0 + steps * dt) / rdt) + 1.0
-
-    def per_tile(x):
-        return x.reshape(sd, c_tiles, TILE_C)
-
-    r_lo = (jnp.arange(r_tiles, dtype=jnp.float32) * TILE_ROWS)[None, None, None, :]
-    r_hi = r_lo + TILE_ROWS
-    valid_t = per_tile(valid)[..., None]
-    span = (
-        valid_t
-        & (per_tile(seg_r1)[..., None] >= r_lo)
-        & (per_tile(seg_r0)[..., None] < r_hi)
-    )
-    bt = (
-        valid_t
-        & (per_tile(b_row)[..., None] >= r_lo)
-        & (per_tile(b_row)[..., None] < r_hi)
-    )
-    touch = jnp.any(span | bt, axis=2)  # (sd, c_tiles, r_tiles)
-    counts = jnp.sum(touch, axis=0).astype(jnp.int32)
-    order = jnp.argsort(~touch, axis=0, stable=True).astype(jnp.int32)
-    return counts, order.transpose(1, 2, 0)
-
-
-def _march_bwd_kernel(counts_ref, ids_ref, seeds_ref, seg_ref, g_ref, gout_ref,
-                      *, cfg: SimConfig):
-    """Backward kernel, span-listed like the forward: one program per
-    (column-tile, row-tile), looping ONLY over the segments whose march row
-    span (or boundary-echo row) touches this row tile (the same
-    ``_touch_tables`` lists the forward uses). Recomputes the forward terms
-    for the tile's rows, multiplies by the RF cotangent, row-reduces, and
-    ACCUMULATES into that segment's gradient row. The previous formulation
-    (one program per (column-tile, segment), full image height) evaluated
-    the scatterer gradients at every row — measured 6.5 ms/frame, ~7.4x
-    the touched work; it dominated the fit step."""
-    axres = cfg.axial_resolution_mm
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-
-    # CORRECTNESS CONSTRAINT (advisor r4): gout's block index maps only on i,
-    # so the j (row-tile) axis revisits the same output block and must run
-    # SEQUENTIALLY with j==0 first — the zero-init below has to precede every
-    # accumulation from j>0. Default TPU grid semantics (all axes 'arbitrary',
-    # executed in order) guarantee this; do NOT add a dimension_semantics
-    # annotation marking j 'parallel' or reorder the grid axes without moving
-    # the init.
-    @pl.when(j == 0)
-    def _():
-        gout_ref[:] = jnp.zeros_like(gout_ref)
-
-    rows_i = jax.lax.broadcasted_iota(jnp.int32, (TILE_ROWS, TILE_C), 0) + j * TILE_ROWS
-    rows_f = rows_i.astype(jnp.float32)
-    row_ok = rows_i < cfg.rf_rows
-
-    seed0 = seeds_ref[0, 0]
-    seed1 = seeds_ref[0, 1]
-    g = g_ref[:]
-
-    def body(it, _):
-        seg_i = ids_ref[i, j, it]
-        blk = seg_ref[seg_i]  # (N_FIELDS, TILE_C)
-
-        def field(f):
-            return blk[f, :].reshape(1, TILE_C)
-
-        t0 = field(F_T0)
-        steps = field(F_STEPS)
-        valid = field(F_VALID) > 0.5
-        matched, k_sel = _match_rows(rows_f, t0, steps, valid, row_ok, cfg)
-
-        scale = k_sel * axres
-        dx, dy, dz = field(F_DIR_X), field(F_DIR_Y), field(F_DIR_Z)
-        px = field(F_FROM_X) + scale * dx
-        py = field(F_FROM_Y) + scale * dy
-        pz = field(F_FROM_Z) + scale * dz
-
-        s = _scat_eval(
-            px, py, pz, field(F_MU0), field(F_MU1), field(F_SIGMA),
-            seed0, seed1, cfg, want_grads=True,
-        )
-        lnatt = field(F_LN_ATT)
-        decay = jnp.exp(lnatt * k_sel)
-        intens = field(F_I0) * decay
-
-        gm = jnp.where(matched, g, 0.0)
-
-        def rsum(x):
-            return jnp.sum(x, axis=0, keepdims=True)  # (1, TILE_C)
-
-        gi = gm * intens  # cotangent routed through intens*scat
-        g_i0 = rsum(gm * decay * s["scat"])
-        g_lnatt = rsum(gi * k_sel * s["scat"])
-        g_mu0 = rsum(gi * s["d_mu0"])
-        g_mu1 = rsum(gi * s["d_mu1"])
-        g_sigma = rsum(gi * s["d_sigma"])
-        gpx = gi * s["d_px"]
-        gpy = gi * s["d_py"]
-        gpz = gi * s["d_pz"]
-        g_fx, g_fy, g_fz = rsum(gpx), rsum(gpy), rsum(gpz)
-        g_dx = rsum(gpx * scale)
-        g_dy = rsum(gpy * scale)
-        g_dz = rsum(gpz * scale)
-        b_row = field(F_B_ROW)
-        g_bval = rsum(jnp.where((rows_f == b_row) & row_ok, g, 0.0))
-
-        zero = jnp.zeros((1, TILE_C), jnp.float32)
-        per_field = [zero] * N_FIELDS
-        per_field[F_FROM_X], per_field[F_FROM_Y], per_field[F_FROM_Z] = g_fx, g_fy, g_fz
-        per_field[F_DIR_X], per_field[F_DIR_Y], per_field[F_DIR_Z] = g_dx, g_dy, g_dz
-        per_field[F_LN_ATT] = g_lnatt
-        per_field[F_I0] = g_i0
-        per_field[F_MU0] = g_mu0
-        per_field[F_MU1] = g_mu1
-        per_field[F_SIGMA] = g_sigma
-        per_field[F_B_VAL] = g_bval
-        upd = jnp.concatenate([x for x in per_field], axis=0)  # (N_FIELDS, TILE_C)
-        gout_ref[seg_i] += upd
-        return 0
-
-    jax.lax.fori_loop(0, counts_ref[i, j], body, 0)
+    # the boundary-echo row floor((t0 + dt*(steps-1))/rdt) lies inside
+    # [r0, r1] whenever steps >= 1 (the only case it is written)
+    n_rows_pad = n_row_tiles * TILE_ROWS
+    r0 = jnp.clip(jnp.floor(t0 / rdt) - 1.0, 0.0, n_rows_pad)
+    r1 = jnp.clip(jnp.floor((t0 + steps * dt) / rdt) + 1.0, -1.0, n_rows_pad - 1)
+    lo = jnp.floor(r0 / TILE_ROWS).astype(jnp.int32)
+    hi = jnp.floor(r1 / TILE_ROWS).astype(jnp.int32)
+    lo = jnp.where(valid, lo, n_row_tiles)
+    hi = jnp.where(valid, hi, -1)
+    c_tiles = c_pad // TILE_C
+    lo = jnp.min(lo.reshape(sd, c_tiles, TILE_C), axis=2)
+    hi = jnp.max(hi.reshape(sd, c_tiles, TILE_C), axis=2)
+    return lo, hi
 
 
 def pack_segments(segments, materials, cfg: SimConfig, n_cols: int):
@@ -480,61 +425,39 @@ def pack_segments(segments, materials, cfg: SimConfig, n_cols: int):
 @functools.lru_cache(maxsize=None)
 def _march_op(cfg: SimConfig, interpret: bool):
     """custom_vjp'd (soa, seeds) -> padded RF image for a given config."""
-    n_rows_pad = ((cfg.rf_rows + 7) // 8) * 8
-    n_rows_fwd = ((cfg.rf_rows + TILE_ROWS - 1) // TILE_ROWS) * TILE_ROWS
+    n_row_tiles = -(-cfg.rf_rows // TILE_ROWS)
+    params = pltriton.CompilerParams(num_warps=NUM_WARPS, num_stages=1)
 
     def fwd_call(soa, seeds):
         sd, c_pad = soa.shape[0], soa.shape[2]
-        counts, ids = _touch_tables(soa, cfg, n_rows_fwd)
-        kernel = functools.partial(_march_kernel, cfg=cfg)
+        lo, hi = _row_tile_spans(soa, cfg, n_row_tiles)
         return pl.pallas_call(
-            kernel,
-            grid=(c_pad // TILE_C, n_rows_fwd // TILE_ROWS),
-            in_specs=[
-                pl.BlockSpec(memory_space=pltpu.SMEM),
-                pl.BlockSpec(memory_space=pltpu.SMEM),
-                pl.BlockSpec(memory_space=pltpu.SMEM),
-                pl.BlockSpec(
-                    (sd, N_FIELDS, TILE_C),
-                    lambda i, j: (0, 0, i),
-                    memory_space=pltpu.VMEM,
-                ),
-            ],
-            out_specs=pl.BlockSpec(
-                (TILE_ROWS, TILE_C), lambda i, j: (j, i), memory_space=pltpu.VMEM
+            functools.partial(_march_kernel, cfg=cfg, n_segments=sd),
+            grid=(c_pad // TILE_C, n_row_tiles),
+            out_specs=pl.BlockSpec((TILE_ROWS, TILE_C), lambda i, j: (j, i)),
+            out_shape=jax.ShapeDtypeStruct(
+                (n_row_tiles * TILE_ROWS, c_pad), jnp.float32
             ),
-            out_shape=jax.ShapeDtypeStruct((n_rows_fwd, c_pad), jnp.float32),
+            backend="triton",
+            compiler_params=params,
             interpret=interpret,
-        )(counts, ids, seeds, soa)
+            name="march_fwd",
+        )(lo, hi, seeds, soa)
 
     def bwd_call(soa, seeds, g):
         sd, c_pad = soa.shape[0], soa.shape[2]
-        counts, ids = _touch_tables(soa, cfg, n_rows_fwd)
-        # op's output (hence its cotangent g) is already (n_rows_fwd, c_pad)
-        kernel = functools.partial(_march_bwd_kernel, cfg=cfg)
+        lo, hi = _row_tile_spans(soa, cfg, n_row_tiles)
+        # g is the cotangent of the op's padded (n_row_tiles*TILE_ROWS, c_pad)
+        # output
         return pl.pallas_call(
-            kernel,
-            grid=(c_pad // TILE_C, n_rows_fwd // TILE_ROWS),
-            in_specs=[
-                pl.BlockSpec(memory_space=pltpu.SMEM),
-                pl.BlockSpec(memory_space=pltpu.SMEM),
-                pl.BlockSpec(memory_space=pltpu.SMEM),
-                pl.BlockSpec(
-                    (sd, N_FIELDS, TILE_C),
-                    lambda i, j: (0, 0, i),
-                    memory_space=pltpu.VMEM,
-                ),
-                pl.BlockSpec(
-                    (TILE_ROWS, TILE_C), lambda i, j: (j, i), memory_space=pltpu.VMEM
-                ),
-            ],
-            out_specs=pl.BlockSpec(
-                (sd, N_FIELDS, TILE_C), lambda i, j: (0, 0, i),
-                memory_space=pltpu.VMEM,
-            ),
+            functools.partial(_march_bwd_kernel, cfg=cfg),
+            grid=(c_pad // TILE_C, sd),
             out_shape=jax.ShapeDtypeStruct((sd, N_FIELDS, c_pad), jnp.float32),
+            backend="triton",
+            compiler_params=params,
             interpret=interpret,
-        )(counts, ids, seeds, soa, g)
+            name="march_bwd",
+        )(lo, hi, seeds, soa, g)
 
     @jax.custom_vjp
     def op(soa, seeds):
@@ -570,15 +493,18 @@ def march_and_accumulate_pallas(
     Works for BOTH texture modes: "procedural" volumes carry seeds directly;
     "table" volumes are materialised from the same hash field and carry the
     seeds alongside (make_texture_volume), so evaluating the hash in-kernel
-    reproduces the table gather bit-for-bit — no (size^3) HBM gather needed."""
+    reproduces the table gather bit-for-bit — no (size^3) gather needed."""
     if "seeds" not in volume:
         raise ValueError(
             "pallas march requires a volume with 'seeds' (make_texture_volume "
             "provides them for both 'procedural' and 'table' modes); externally "
             "supplied raw tables must use the jnp march path"
         )
+    if cfg.soft_row_binning:
+        raise ValueError("the march kernel bins rows hard; soft_row_binning "
+                         "needs the jnp march path")
     c = n_cols or cfg.rf_cols
     soa = pack_segments(segments, materials, cfg, c)
-    seeds = volume["seeds"].astype(jnp.int32).reshape(1, 2)
+    seeds = volume["seeds"].astype(jnp.int32)
     out = _march_op(cfg, interpret)(soa, seeds)
     return out[: cfg.rf_rows, :c]

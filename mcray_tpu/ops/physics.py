@@ -1,6 +1,6 @@
 """Acoustic ray physics: boundary interaction, attenuation, sampling.
 
-TPU-native rebuild of the reference's scalar per-ray functions
+Array-program rebuild of the reference's scalar per-ray functions
 (reference: src/ray.cpp) as vectorised jnp over ``(N,)`` ray batches, with
 counter-based ``jax.random`` keys replacing the reference's per-call
 ``std::random_device`` + mt19937 reseeding (src/ray.cpp:85-87,174-177,216-218)
@@ -35,13 +35,13 @@ IMPEDANCE, ATTENUATION, MU0, MU1, SIGMA, SPECULARITY, SHININESS, THICKNESS = ran
 def take_rows(table: Array, ids: Array) -> Array:
     """``table[ids]`` for a SMALL first axis via one-hot matmul.
 
-    XLA lowers per-row dynamic gathers to serialised ~57 ns/element loops on
-    TPU — seven such (2560,)-sized gathers inside the bounce scan cost
-    ~1.0 ms/frame, dominating the trace stage (profiled round 4). A
-    (N, M) one-hot times (M, ...) table is VPU work at microseconds. Exact:
-    each output row sums one 1.0*value against zeros (precision=HIGHEST
-    keeps the multiply f32), and the transpose (scatter-add) matches the
-    gather's VJP, so material gradients are unchanged bit-for-bit.
+    Timed on an H100 against the plain clipped gather in whole frames: the
+    gather won a single (host-bound) sphere frame by 0.6 ms and tied on 8
+    sphere frames; the one-hot form won both cells of the 123k-triangle
+    scene, by 1.3 ms (8%) on 8 frames (PERF.md). So it stays. Exact: each output row sums one 1.0*value against zeros
+    (precision=HIGHEST keeps the multiply f32, with no TF32), and the
+    transpose (scatter-add) matches the gather's VJP, so material gradients
+    are unchanged bit-for-bit.
 
     Ids are clamped to [0, M-1] to preserve jnp-gather clamping semantics:
     a raw one-hot would map out-of-range ids to an all-zero row (returning
@@ -115,7 +115,7 @@ def reflected_intensity_mattausch(
 def split_each(keys: Array, num: int) -> Array:
     """Split a batch of keys: (N,) keys -> (N, num) keys. Per-path keys make
     every random draw a pure function of (seed, path id, bounce, purpose), so
-    renders are bitwise invariant to how paths are sharded across chips."""
+    renders are bitwise invariant to how paths are sharded across devices."""
     return jax.vmap(lambda k: jax.random.split(k, num))(keys)
 
 

@@ -1,6 +1,6 @@
 """Tiled Gaussian scatterer texture volume.
 
-TPU-native rebuild of the reference's 256^3 host-RAM voxel grid
+Array-program rebuild of the reference's 256^3 host-RAM voxel grid
 (reference: src/volume.h). Two N(0,1) fields (texture noise, scattering
 probability) are generated once on device with a counter-based key — the
 reference's std::default_random_engine fill is deterministic but
@@ -35,9 +35,8 @@ def make_texture_volume(key: Array, cfg: SimConfig) -> dict[str, Array]:
     - "procedural" (default): no storage — an iid N(0,1)-per-voxel field
       computed on the fly from an integer voxel hash + Box-Muller.
       Identical distribution and identical %size tiling to the reference's
-      table, zero HBM traffic; the whole lookup is VPU arithmetic. This is
-      the TPU-first design: the reference's table is itself just cached
-      white noise (src/volume.h:19-35).
+      table, no memory traffic; the whole lookup is integer and float
+      arithmetic. The reference's table is itself just cached white noise (src/volume.h:19-35).
     - "table": materialised (size^3) noise + probability fields — the
       reference's memory layout (src/volume.h:19-35; 134 MB at 256^3),
       exercised by the jnp gather path. The table is FILLED from the same
@@ -93,7 +92,7 @@ def _bitsum_normal(bits: Array) -> Array:
     the high 16 bits (Binomial(16, 1/2)) plus a (0,1) uniform dither from
     the low 16 bits. Exact mean/variance, symmetric, excess kurtosis -0.12,
     support ±4.2σ, CDF within ~7e-3 of Φ — the "cheaper-polynomial N(0,1)"
-    of VERDICT r4 item 3, TPU-native (pure VPU int ops, full lane width)."""
+    (pure integer ops)."""
     pc = jax.lax.population_count(bits >> 16).astype(jnp.float32)
     u = ((bits & jnp.uint32(0xFFFF)).astype(jnp.float32) + 0.5) * (1.0 / 65536.0)
     return (pc + u - 8.5) * jnp.float32(BITSUM_SCALE)

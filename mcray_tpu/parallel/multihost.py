@@ -1,14 +1,12 @@
-"""Multi-host (pod-slice) initialisation and mesh construction.
+"""Multi-process initialisation and mesh construction.
 
-The reference has no distributed path at all (SURVEY.md §2.3). The TPU-native
-design scales across hosts with jax.distributed over DCN for control and XLA
-collectives over ICI for data: after ``initialize()``, every host sees the
+The reference has no distributed path at all (SURVEY.md §2.3). Here
+jax.distributed joins the processes, after which every process sees the
 global device set and the same ``shard_map`` code from parallel/shard.py runs
-unchanged — scanlines sharded over all chips, the ~1 MB RF all_gather and the
-(M, 8) material-gradient psum riding ICI within a slice.
+unchanged — scanlines sharded over all devices, the ~1 MB RF all_gather and
+the (M, 8) material-gradient psum as XLA collectives.
 
-Cannot be exercised on a single-host image; validated structurally via the
-virtual-device mesh tests and the driver's dryrun_multichip.
+tests/test_multihost.py runs it with two CPU processes over gloo.
 """
 
 from __future__ import annotations
@@ -23,8 +21,8 @@ def initialize(coordinator_address: str | None = None,
                process_id: int | None = None) -> None:
     """Fail-fast jax.distributed init (no-op on single process).
 
-    On Cloud TPU the arguments are auto-detected from the metadata server;
-    pass them explicitly elsewhere.
+    Pass the coordinator address (``host:port``), the process count and
+    this process's id explicitly: nothing detects them.
     """
     if num_processes is not None and num_processes <= 1:
         return
@@ -36,7 +34,7 @@ def initialize(coordinator_address: str | None = None,
 
 
 def global_mesh(axis: str = "rays"):
-    """1-D mesh over every chip in the slice (all hosts)."""
+    """1-D mesh over every device of every process."""
     return make_mesh(axis=axis)
 
 

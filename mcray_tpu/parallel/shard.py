@@ -1,25 +1,29 @@
-"""Multi-chip execution: scanline-sharded rendering and training.
+"""Multi-device execution: scanline-sharded rendering and training.
 
-The TPU-native parallelism layer the reference lacks entirely (its only
+The parallelism layer the reference lacks entirely (its only
 concurrency hooks are two commented-out OpenMP pragmas, reference
 src/scene.cpp:74,105; design per SURVEY.md §2.3):
 
 - **Ray/scanline data parallelism**: the R transducer elements are sharded
-  over the ``"rays"`` mesh axis with ``jax.shard_map``. Each chip traces its
+  over the ``"rays"`` mesh axis with ``jax.shard_map``. Each device traces its
   R/ndev scanlines (x S Monte-Carlo samples) against the replicated scene.
-- **Chip-local RF accumulation**: a scanline's echoes land only in its own
+- **Device-local RF accumulation**: a scanline's echoes land only in its own
   RF column (reference add_echo indexes column = ray_i, src/rfimage.h:33-40),
-  so with a column-sharded RF image the entire scatter-add is chip-local —
-  zero communication in the hot loop.
+  so with a column-sharded RF image the entire echo accumulation is
+  device-local — zero communication in the hot loop.
 - **Image assembly**: one tiled ``all_gather`` of the (465 x R/ndev) partial
-  RF images (~1 MB over ICI) before the dense image post-ops.
+  RF images (~1 MB) before the dense image post-ops, after a ``ppermute``
+  halo exchange for the lateral PSF pass.
 - **Gradient communication**: the backward pass of ``psum``-free local work
-  produces per-chip partials of the tiny (M, 8) material-parameter gradient;
-  ``shard_map``'s AD inserts the ``psum`` over ICI automatically when the
+  produces per-device partials of the tiny (M, 8) material-parameter
+  gradient; ``shard_map``'s AD inserts the ``psum`` automatically when the
   loss reduces over gathered results.
 
+The mesh is a flat device list: every collective here is a gather, a
+neighbour shift or a sum, which need no particular device topology.
+
 Per-path RNG keys are derived from GLOBAL path ids (simulator.trace_paths),
-so the sharded render is bitwise identical to the single-chip render.
+so the sharded render is bitwise identical to the single-device render.
 """
 
 from __future__ import annotations
@@ -34,9 +38,17 @@ from jax.sharding import Mesh, PartitionSpec as P
 from ..config import SimConfig
 from ..models import simulator
 from ..ops import imaging
+from ..paths import Paths, choose_paths
 from ..probe.transducer import element_layout
 
 Array = jax.Array
+
+
+def _default_paths(pack, cfg: SimConfig) -> Paths:
+    return choose_paths(
+        jax.default_backend(), pack.n_triangles,
+        soft_row_binning=cfg.soft_row_binning,
+    )
 
 
 def make_mesh(n_devices: int | None = None, axis: str = "rays") -> Mesh:
@@ -48,7 +60,7 @@ def make_mesh(n_devices: int | None = None, axis: str = "rays") -> Mesh:
 
 def make_mesh_2d(n_rays: int, n_samples: int) -> Mesh:
     """2-D mesh: scanlines x Monte-Carlo samples (SURVEY.md §2.3 long axes:
-    scanlines shard chip-locally; samples are a pure psum reduction axis)."""
+    scanlines shard device-locally; samples are a pure psum reduction axis)."""
     import numpy as np
 
     devs = np.asarray(jax.devices()[: n_rays * n_samples]).reshape(n_rays, n_samples)
@@ -58,31 +70,17 @@ def make_mesh_2d(n_rays: int, n_samples: int) -> Mesh:
 def _shard_render_body(
     key,
     materials,
-    positions,      # (R_local, 3) this chip's element positions
+    positions,      # (R_local, 3) this device's element positions
     directions,     # (R_local, 3)
-    elem_global0,   # (1,) global index of this chip's first element
-    state: dict[str, Any],  # replicated device state (scene tables, volume,
-    #                         scan maps, optional packed clusters) — threaded
-    #                         as an argument, never closed over (see
-    #                         Simulator's state-threading note)
+    elem_global0,   # (1,) global index of this device's first element
+    state: dict[str, Any],  # replicated device state (simulator.scene_state)
     cfg: SimConfig,
-    trace_kw: dict,
+    paths: Paths,
     axis: str,
     n_shards: int,
     distributed_imaging: bool,
-    use_pallas: bool = False,
-    pallas_interpret: bool = False,
-    use_pallas_scanconv: bool = False,
-    scan_banded: tuple | None = None,
 ):
-    scene = state["scene"]
-    spacing = state["spacing"]
-    starting_material = state["starting_material"]
-    volume = state["volume"]
     scan_maps = state["scan_maps"]
-    if state.get("packed") is not None:
-        trace_kw = dict(trace_kw)
-        trace_kw["culled_tris"] = (state["packed"], trace_kw.pop("culled_mode"))
     r_local = positions.shape[0]
     s = cfg.samples_per_element
     local_elem = jnp.repeat(jnp.arange(r_local, dtype=jnp.int32), s)
@@ -94,24 +92,18 @@ def _shard_render_body(
         materials,
         jnp.zeros(3),
         jnp.zeros(3),
-        scene,
-        spacing,
-        starting_material,
+        state["scene"],
+        state["spacing"],
+        state["starting_material"],
         cfg,
+        paths=paths,
+        packed=state["packed"],
+        bvh_arrays=state["bvh_arrays"],
         elements=(positions, directions, local_elem, path_ids),
-        **trace_kw,
     )
-    if use_pallas:
-        from ..ops.pallas.march import march_and_accumulate_pallas
-
-        rf_local = march_and_accumulate_pallas(
-            segments, materials, volume, cfg, n_cols=r_local,
-            interpret=pallas_interpret,
-        )
-    else:
-        rf_local = simulator.march_and_accumulate(
-            segments, materials, volume, cfg, n_cols=r_local
-        )
+    rf_local = simulator.march(
+        segments, materials, state["volume"], cfg, paths, n_cols=r_local
+    )
     if distributed_imaging:
         # column-sharded convolution with an (R, l-1) ppermute halo, local
         # envelope, then one all_gather of the finished RF for the polar
@@ -120,54 +112,22 @@ def _shard_render_body(
         rf_env_local = imaging.apply_envelope(rf_conv_local, cfg)
         rf_env = jax.lax.all_gather(rf_env_local, axis, axis=1, tiled=True)
     else:
-        # assemble the full RF image on every chip (~1 MB over ICI) and run
-        # the dense post-ops replicated
+        # assemble the full RF image on every device (~1 MB) and run the
+        # dense post-ops replicated
         rf_full = jax.lax.all_gather(rf_local, axis, axis=1, tiled=True)
         rf_conv = imaging.convolve_psf(rf_full, cfg)
         rf_env = imaging.apply_envelope(rf_conv, cfg)
     if cfg.log_compression:
         # global max -> needs the gathered image in both branches
         rf_env = imaging.log_compress(rf_env)
-    if use_pallas_scanconv:
-        # MXU scan-conversion kernel on the gathered (replicated) RF —
-        # exercised under shard_map so the sharded composition covers every
-        # Pallas kernel (VERDICT r4 item 5). precision="highest" keeps it
-        # f32-exact vs imaging.scan_convert in interpret-mode CPU tests.
-        # scan_banded: the r5 split/banded formulation (static pack data
-        # rides the functools.partial, the table rides the state pytree).
-        precision = "highest" if pallas_interpret else "default"
-        if scan_banded is not None:
-            from ..ops.pallas.scanconv import scan_convert_banded
-
-            j_w, band_k, band_split = scan_banded
-            bmode = jnp.maximum(
-                scan_convert_banded(
-                    rf_env, state["scan_table"], j_w, cfg.bmode_cols,
-                    band_k=band_k, split=band_split,
-                    out_rows=cfg.bmode_rows,
-                    interpret=pallas_interpret, precision=precision,
-                ),
-                0.0,
-            )
-        else:
-            from ..ops.pallas.scanconv import scan_convert_pallas
-
-            bmode = jnp.maximum(
-                scan_convert_pallas(
-                    rf_env, state["scan_table"], cfg.bmode_cols,
-                    interpret=pallas_interpret, precision=precision,
-                ),
-                0.0,
-            )
-    else:
-        bmode = imaging.scan_convert(rf_env, scan_maps[0], scan_maps[1])
+    bmode = imaging.scan_convert(rf_env, scan_maps[0], scan_maps[1])
     return bmode, rf_local
 
 
 def _shard_render_body_2d(
     key,
     materials,
-    positions,      # (R_local, 3) this chip's elements (sharded over "rays")
+    positions,      # (R_local, 3) this device's elements (sharded over "rays")
     directions,
     elem_global0,   # (R_local,) global element indices
     state,
@@ -176,14 +136,11 @@ def _shard_render_body_2d(
     axis_s: str,
     n_r: int,
     n_s: int,
+    paths: Paths,
 ):
-    """2-D mesh body: scanlines sharded over ``axis_r`` (chip-local RF
+    """2-D mesh body: scanlines sharded over ``axis_r`` (device-local RF
     columns), Monte-Carlo samples sharded over ``axis_s`` (a pure psum
     reduction of partial RF images — SURVEY.md §2.3 long-axis (c))."""
-    scene = state["scene"]
-    spacing = state["spacing"]
-    starting_material = state["starting_material"]
-    volume = state["volume"]
     scan_maps = state["scan_maps"]
     r_local = positions.shape[0]
     s_global = cfg.samples_per_element
@@ -199,14 +156,15 @@ def _shard_render_body_2d(
     path_ids = elem_g * s_global + samp_g
 
     segments = simulator.trace_paths(
-        key, materials, jnp.zeros(3), jnp.zeros(3), scene, spacing,
-        starting_material, cfg,
+        key, materials, jnp.zeros(3), jnp.zeros(3), state["scene"],
+        state["spacing"], state["starting_material"], cfg,
+        paths=paths, packed=state["packed"], bvh_arrays=state["bvh_arrays"],
         elements=(positions, directions, local_elem, path_ids),
     )
-    rf_partial = simulator.march_and_accumulate(
-        segments, materials, volume, cfg, n_cols=r_local
+    rf_partial = simulator.march(
+        segments, materials, state["volume"], cfg, paths, n_cols=r_local
     )
-    # samples axis: pure reduction of partial RF images over ICI
+    # samples axis: pure reduction of partial RF images
     rf_local = jax.lax.psum(rf_partial, axis_s)
     rf_conv_local = imaging.convolve_psf_sharded(rf_local, cfg, axis_r, n_r)
     rf_env_local = imaging.apply_envelope(rf_conv_local, cfg)
@@ -220,9 +178,8 @@ def _shard_render_body_2d(
 class ShardedRenderer2D:
     """Renderer over a ("rays", "samples") 2-D device mesh."""
 
-    def __init__(self, pack, cfg: SimConfig, mesh: Mesh, seed: int = 0):
-        from ..ops import texture
-
+    def __init__(self, pack, cfg: SimConfig, mesh: Mesh, seed: int = 0,
+                 paths: Paths | None = None):
         self.cfg = cfg
         self.pack = pack
         self.mesh = mesh
@@ -231,19 +188,9 @@ class ShardedRenderer2D:
         n_s = mesh.shape[axis_s]
         if cfg.transducer_elements % n_r or cfg.samples_per_element % n_s:
             raise ValueError("elements/samples must divide the mesh axes")
-        self.scene = {k: jnp.asarray(v) for k, v in pack.trace_tables().items()}
+        self.paths = paths or _default_paths(pack, cfg)
+        self._state = simulator.scene_state(pack, cfg, self.paths, seed)
         self.materials = jnp.asarray(pack.materials)
-        self.volume = texture.make_texture_volume(jax.random.PRNGKey(seed ^ 0x5CA77E7), cfg)
-        maps = imaging.scan_conversion_maps(cfg)
-        scan_maps = (jnp.asarray(maps[0]), jnp.asarray(maps[1]))
-
-        self._state = {
-            "scene": self.scene,
-            "spacing": jnp.asarray(pack.spacing),
-            "starting_material": jnp.int32(pack.starting_material),
-            "volume": self.volume,
-            "scan_maps": scan_maps,
-        }
         body = functools.partial(
             _shard_render_body_2d,
             cfg=cfg,
@@ -251,6 +198,7 @@ class ShardedRenderer2D:
             axis_s=axis_s,
             n_r=n_r,
             n_s=n_s,
+            paths=self.paths,
         )
         sharded = jax.shard_map(
             body,
@@ -280,7 +228,8 @@ class ShardedRenderer2D:
 
 
 class ShardedRenderer:
-    """Scanline-sharded frame renderer over a 1-D device mesh."""
+    """Scanline-sharded frame renderer over a 1-D device mesh. ``paths``
+    defaults to ``choose_paths`` for the default backend, as in Simulator."""
 
     def __init__(
         self,
@@ -289,13 +238,8 @@ class ShardedRenderer:
         mesh: Mesh | None = None,
         seed: int = 0,
         distributed_imaging: bool = True,
-        use_pallas: bool | None = None,
-        pallas_interpret: bool = False,
-        intersect_mode: str | None = None,
-        use_pallas_scanconv: bool | None = None,
+        paths: Paths | None = None,
     ):
-        from ..ops import texture
-
         self.cfg = cfg
         self.pack = pack
         self.mesh = mesh or make_mesh()
@@ -306,86 +250,18 @@ class ShardedRenderer:
                 f"transducer_elements ({cfg.transducer_elements}) must divide "
                 f"evenly over {n_dev} devices"
             )
-        if use_pallas is None:
-            # both texture modes qualify: "table" volumes carry the hash
-            # seeds that the march kernel evaluates (see texture.py)
-            use_pallas = (
-                jax.default_backend() == "tpu" and not cfg.soft_row_binning
-            )
-        # large scenes: cluster-culled intersect kernel (same policy as
-        # Simulator), replicated scene per chip, chip-local ray tiles.
-        # pallas_interpret=True runs the same kernels through the Pallas
-        # interpreter (CPU-mesh tests of the full sharded composition —
-        # VERDICT r4 item 5); intersect_mode forces listed/culled/staged.
-        trace_kw: dict = {}
-        packed = None
-        if use_pallas:
-            if pack.n_triangles >= 2048 or intersect_mode is not None:
-                from ..ops.pallas.intersect import pack_tris_culled
-
-                order = pack.bvh.tri_order if pack.bvh is not None else None
-                # list-driven kernel for large scenes (Simulator policy)
-                mode = intersect_mode or (
-                    "listed" if pack.n_triangles >= 8192 else "culled"
-                )
-                packed = pack_tris_culled(
-                    pack.tris,
-                    pack.tri_mesh_id,
-                    order,
-                    sort_origin=pack.transducer_position,
-                    tile_t=128 if mode == "listed" else 256,
-                )
-                # the packed clusters ride the state pytree (threaded as an
-                # argument); only the mode string stays static
-                trace_kw = {
-                    "culled_mode": mode,
-                    "intersect_interpret": pallas_interpret,
-                }
-            elif not pallas_interpret:
-                trace_kw = {"use_pallas_intersect": True}
-        self.scene = {k: jnp.asarray(v) for k, v in pack.trace_tables().items()}
-        self.spacing = jnp.asarray(pack.spacing)
-        self.starting_material = jnp.int32(pack.starting_material)
+        self.paths = paths or _default_paths(pack, cfg)
+        self._state = simulator.scene_state(pack, cfg, self.paths, seed)
         self.materials = jnp.asarray(pack.materials)
-        self.volume = texture.make_texture_volume(
-            jax.random.PRNGKey(seed ^ 0x5CA77E7), cfg
-        )
-        maps = imaging.scan_conversion_maps(cfg)
-        self.scan_maps = (jnp.asarray(maps[0]), jnp.asarray(maps[1]))
-        if use_pallas_scanconv is None:
-            use_pallas_scanconv = bool(use_pallas) and not pallas_interpret
-        scan_table = None
-        scan_banded = None
-        if use_pallas_scanconv:
-            from ..ops.pallas.scanconv import pack_scan_maps_banded
-
-            tb, j_w, band_k, band_split = pack_scan_maps_banded(
-                maps[0], maps[1], cfg.rf_rows, cfg.rf_cols
-            )
-            scan_table = jnp.asarray(tb)
-            scan_banded = (j_w, band_k, band_split)
 
         axis = self.axis
-        self._state = {
-            "scene": self.scene,
-            "spacing": self.spacing,
-            "starting_material": self.starting_material,
-            "volume": self.volume,
-            "scan_maps": self.scan_maps,
-            "scan_table": scan_table,
-            "packed": packed,
-        }
         body = functools.partial(
             _shard_render_body,
             cfg=cfg,
-            trace_kw=trace_kw,
+            paths=self.paths,
             axis=axis,
             n_shards=n_dev,
             distributed_imaging=distributed_imaging,
-            use_pallas=bool(use_pallas),
-            pallas_interpret=pallas_interpret,
-            use_pallas_scanconv=use_pallas_scanconv,
-            scan_banded=scan_banded,
         )
         sharded = jax.shard_map(
             body,
@@ -407,7 +283,7 @@ class ShardedRenderer:
     def make_train_step(self, optimizer, mask=None):
         """One jitted sharded training step: render under shard_map,
         pixel-MSE loss vs target, backward pass (shard_map AD inserts the
-        psum of per-chip material-gradient partials over ICI), masked
+        psum of per-device material-gradient partials), masked
         optimiser update. Returns step(key, materials, opt_state, target,
         position, angles) -> (materials, opt_state, loss)."""
         import numpy as np

@@ -1,6 +1,6 @@
 """Convex-array transducer layout as a pure, differentiable function of pose.
 
-TPU-native rebuild of the reference's mutable ``transducer<N>`` class
+Functional rebuild of the reference's mutable ``transducer<N>`` class
 (reference: src/transducer.h:24-118): instead of an object whose ``update()``
 rewrites an element array in place, element positions/directions are a pure
 function of ``(position, angles)`` — so probe pose is a differentiable input

@@ -1,6 +1,6 @@
 """Scene compiler: SceneSpec -> packed device arrays (ScenePack).
 
-The TPU-native analogue of the reference's Bullet world construction
+The array-program analogue of the reference's Bullet world construction
 (reference: src/scene.cpp:38-48, :300-334): instead of per-mesh
 btBvhTriangleMeshShape objects behind pointers, the whole scene becomes one
 flat SoA triangle soup in world space plus small per-mesh/material tables,

@@ -1,4 +1,4 @@
-"""Scene runtime facade — the reference's `scene` class surface, TPU-native.
+"""Scene runtime facade — the reference's `scene` class surface, in JAX.
 
 Maps the reference API (reference src/scene.h:19-76) onto the functional
 pipeline so users migrating from the C++ find the same entry points:

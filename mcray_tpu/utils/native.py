@@ -1,9 +1,9 @@
 """ctypes bridge to the native C++ runtime (native/libmcray_native.so).
 
 The reference's host-side native pieces are Bullet's BVH builder and tinyobj
-(SURVEY.md §2.2). Their TPU-native equivalents live in native/mcray_native.cpp:
+(SURVEY.md §2.2). Their equivalents live in native/mcray_native.cpp:
 a binned-SAH BVH *builder* and a fast OBJ parser, both emitting flat numpy
-arrays the TPU traversal kernels consume. The compute path never calls C++ —
+arrays the device traversal paths consume. The compute path never calls C++ —
 only scene compilation does. Falls back to pure-Python implementations when
 the shared library has not been built.
 """

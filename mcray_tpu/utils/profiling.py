@@ -3,7 +3,7 @@
 The reference's only instrumentation is an fps print (reference
 src/scene.cpp:178-180) and unused chrono timestamps (src/main.cpp:87-97).
 Here: a metrics registry with wall-clock stage timers, rays/s accounting and
-optional jax.profiler trace capture for in-depth TPU analysis.
+optional jax.profiler trace capture for in-depth device analysis.
 """
 
 from __future__ import annotations

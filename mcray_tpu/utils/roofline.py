@@ -1,188 +1,103 @@
-"""Roofline accounting: analytic FLOPs + HBM bytes per pipeline stage vs
-chip peaks, so measured stage times convert to %-of-peak utilisation.
+"""Roofline accounting: analytic FLOPs + device-memory bytes per pipeline
+stage against the card's published peaks, so measured stage times convert
+to a share of peak.
 
-VERDICT r3 item 1: "faster than a 2-core CPU" is not an absolute claim;
-this module turns device timings into effective FLOP/s and HBM GB/s against
-the v5e's physical ceilings, and classifies each stage compute- vs
-bandwidth-bound. All counts are derived from the ACTUAL workload of a
-rendered frame (cluster survival, touched march tiles, segment validity),
-not nominal upper bounds; each formula documents what it counts.
-
-Peaks (TPU v5e / "lite" single chip, public figures as compiled in the
-jax-ml scaling book):
-- MXU: 197 TFLOP/s bf16 (394 int8);
-- VPU: 8x128 lanes x 4 ALUs x ~0.94 GHz ~= 3.85 TFLOP/s f32 (elementwise);
-- HBM: 819 GB/s.
-A transcendental (exp/log/sin/cos/rsqrt) retires ~1 op/ALU-slot like a FMA,
-so it is counted as 1 FLOP here; stages heavy in transcendentals (march)
-therefore UNDERSTATE their pipe occupancy — noted per stage.
+Peaks live in one table keyed by ``jax.Device.device_kind``; a device that
+is not in the table is an error, not a default. Every stage here is f32
+elementwise work outside the tensor cores, so the compute peak is the
+card's non-tensor f32 rate. A transcendental (exp/log/sqrt) is counted as 1
+FLOP; stages heavy in them understate their pipe occupancy.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-V5E_MXU_BF16_FLOPS = 197e12
-V5E_VPU_F32_FLOPS = 3.85e12
-V5E_HBM_BYTES_S = 819e9
+# NVIDIA H100 Tensor Core GPU data sheet (SXM5 part, dense rates): 67 TFLOP/s
+# f32 (non-tensor), 495 TFLOP/s TF32 and 989 TFLOP/s bf16 tensor core, 3.35
+# TB/s HBM3. The data sheet's rates assume the 700 W power limit.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {
+        "f32_flops": 67e12,
+        "tf32_tensor_flops": 495e12,
+        "bf16_tensor_flops": 989e12,
+        "hbm_bytes_s": 3.35e12,
+        "source": "NVIDIA H100 Tensor Core GPU data sheet, SXM5",
+    },
+}
 
-# Moller-Trumbore per (ray, triangle) pair in the intersect kernels:
-# 2 cross products (12), 4 dot products (20), tvec (3), u/v/t scale (6),
-# det recip (1), compares+selects (~8), running min/argmin update (~4).
+
+def peaks(device_kind: str) -> dict:
+    """The published peaks of ``device_kind``; raises for unknown devices."""
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise ValueError(
+            f"no published peaks for device {device_kind!r}; add them to "
+            "mcray_tpu.utils.roofline.PEAKS with their source"
+        ) from None
+
+
+# Moller-Trumbore per (ray, triangle) pair in the listed kernel: 2 cross
+# products (12), 4 dot products (20), tvec (3), u/v/t scale (6), det recip
+# (1), compares+selects (~8), running min/argmin update (~4).
 MT_FLOPS = 54
-# packet slab test per (ray, box): 6 mul + 6 sub + 8 min/max + 3 cmp
+# slab test per (ray, box): 6 mul + 6 sub + 8 min/max + 3 cmp
 SLAB_FLOPS = 23
-# march scatterer evaluation per (row, col, segment-candidate) sample in
-# nearest+procedural mode: 3 wrap-indexes (~12), voxel id (4),
-# 2 hashes (2x9 int ops), Box-Muller (log+sqrt+cos+sin+4), gate+value (6),
-# intensity exp + fma (4), row-match bookkeeping (~10).
-MARCH_FLOPS_PER_SAMPLE = 70
+# march kernel work per (row, col, segment) cell with the default bitsum
+# field, nearest texture: 4 row-match candidates (~24), sample point (6),
+# 3 wrap indexes (~9), voxel id (4), 2 hashes (2x9 int ops), 2 bit-sum
+# normals (2x6), gate + value (4), intensity exp + fma (3).
+MARCH_FLOPS_PER_SAMPLE = 80
 
 
 @dataclasses.dataclass
 class StageCost:
     name: str
-    flops: float          # executed FLOPs per frame (documented model)
-    hbm_bytes: float      # HBM traffic per frame (reads + writes)
-    unit: str             # "vpu" (f32 elementwise) or "mxu" (bf16 matmul)
-    useful_flops: float | None = None  # problem-inherent FLOPs (formulation-
-    # independent lower bound); when << flops the stage is at a FORMULATION
-    # ceiling, not a problem ceiling — e.g. one-hot-matmul scan conversion
-    # executes ~107 GFLOP for ~3 MFLOP of useful 4-tap bilinear work.
+    flops: float       # executed FLOPs per frame (documented model)
+    hbm_bytes: float   # device-memory traffic per frame (reads + writes)
 
-    def summarize(self, seconds: float) -> dict:
-        peak = V5E_MXU_BF16_FLOPS if self.unit == "mxu" else V5E_VPU_F32_FLOPS
-        eff_flops = self.flops / seconds
-        eff_bw = self.hbm_bytes / seconds
-        # time each ceiling alone would need; the larger fraction is the bound
-        t_compute = self.flops / peak
-        t_mem = self.hbm_bytes / V5E_HBM_BYTES_S
+    def summarize(self, seconds: float, device_kind: str) -> dict:
+        pk = peaks(device_kind)
+        t_compute = self.flops / pk["f32_flops"]
+        t_mem = self.hbm_bytes / pk["hbm_bytes_s"]
         return {
             "stage": self.name,
-            "ms": round(seconds * 1e3, 3),
-            "gflops": round(self.flops / 1e9, 2),
-            "hbm_mb": round(self.hbm_bytes / 1e6, 2),
-            "effective_tflops": round(eff_flops / 1e12, 3),
-            "pct_peak_compute": round(100 * eff_flops / peak, 2),
-            "effective_gbps": round(eff_bw / 1e9, 2),
-            "pct_peak_hbm": round(100 * eff_bw / V5E_HBM_BYTES_S, 2),
+            "ms": seconds * 1e3,
+            "gflops": self.flops / 1e9,
+            "hbm_mb": self.hbm_bytes / 1e6,
+            "roofline_ms": max(t_compute, t_mem) * 1e3,
+            "roofline_share": max(t_compute, t_mem) / seconds,
             "bound": "compute" if t_compute >= t_mem else "bandwidth",
-            "unit": self.unit,
-            "roofline_ms": round(max(t_compute, t_mem) * 1e3, 4),
-            **(
-                {
-                    "useful_gflops": round(self.useful_flops / 1e9, 4),
-                    "formulation_overhead_x": round(
-                        self.flops / max(self.useful_flops, 1.0), 1
-                    ),
-                }
-                if self.useful_flops is not None
-                else {}
-            ),
         }
 
 
-# frustum interval test per (packet, box): 3 axes x (8 corner products x
-# (1 mul + 2 min/max) + 2 accumulate) ~= 78, + list assembly compares (~3)
-FRUSTUM_FLOPS = 81
-# per-(packet, ray) interval setup for the frustum: inv dir (3) + 4
-# componentwise min/max reductions over 3 axes (~12) + live mask (~4)
-FRUSTUM_SETUP_FLOPS = 19
+def intersect_cost(visited_per_bounce, tile_r: int, tile_t: int,
+                   n_rays: int, n_clusters: int) -> StageCost:
+    """Per-frame listed-intersect work. ``visited_per_bounce``: per bounce
+    depth, the sum over packets of their cluster-list lengths (an upper
+    bound on the clusters the kernel tests; the early stop only shrinks it).
 
-
-def intersect_cost(cfg, n_bounces_counts, tile_r: int, tile_t: int,
-                   n_rays: int, n_clusters: int, mode: str,
-                   list_method: str = "exact", n_supers: int = 0) -> StageCost:
-    """Per-frame intersect kernel work.
-
-    ``n_bounces_counts``: list over bounce depth of (visited_clusters_total,
-    packets_live) where visited_clusters_total sums each packet's surviving-
-    cluster list length (listed kernel: exactly the tiles DMA'd and
-    slab-rechecked, MT upper bound — early-stop only shrinks it; culled
-    kernel: tiles whose packet slab test passes).
-
-    FLOPs = per visited (packet, cluster) tile: tile_r x tile_t MT pairs +
-    tile_r slab re-check, plus the prepass that was ACTUALLY run
-    (``list_method``, advisor r4): "exact" is a dense (P, R, C) per-ray
-    slab; "frustum" is (P, C) interval tests + a (P, R) setup reduction;
-    "hier" is an exact (P, R, S) super-level slab plus the cluster frustum.
-    HBM bytes = one 16 x tile_t f32 DMA per visited tile (listed/staged;
-    the culled kernel streams every tile: counted via visited = all)."""
+    FLOPs = the dense (rays x clusters) slab prepass per bounce, plus per
+    visited (packet, cluster): tile_r x tile_t Moller-Trumbore pairs and a
+    tile_r slab re-check. Bytes = one 9 x tile_t f32 tile per visit plus the
+    (packets x clusters) lists."""
     packets = n_rays // tile_r
-    if list_method == "exact":
-        prepass = packets * tile_r * n_clusters * SLAB_FLOPS
-    elif list_method == "frustum":
-        prepass = (packets * n_clusters * FRUSTUM_FLOPS
-                   + packets * tile_r * FRUSTUM_SETUP_FLOPS)
-    elif list_method == "hier":
-        prepass = (packets * tile_r * max(n_supers, 1) * SLAB_FLOPS
-                   + packets * n_clusters * FRUSTUM_FLOPS
-                   + packets * tile_r * FRUSTUM_SETUP_FLOPS)
-    else:  # brute kernel: no prepass at all
-        prepass = 0.0
     flops = 0.0
     bytes_ = 0.0
-    for visited, _live in n_bounces_counts:
+    for visited in visited_per_bounce:
+        flops += n_rays * n_clusters * SLAB_FLOPS
         flops += visited * (tile_r * tile_t * MT_FLOPS + tile_r * SLAB_FLOPS)
-        bytes_ += visited * 16 * tile_t * 4
-        flops += prepass
-        bytes_ += packets * n_clusters * 4 * 3  # lists: counts/ids/keys
-    return StageCost("intersect", flops, bytes_, "vpu")
+        bytes_ += visited * 9 * tile_t * 4 + packets * n_clusters * 4 * 2
+    return StageCost("intersect", flops, bytes_)
 
 
-def march_cost(cfg, touched_tiles: int, tile_rows: int, tile_c: int,
-               soa_bytes: int, n_cols: int) -> StageCost:
-    """Span-listed march kernel: every (row-tile, col-tile) evaluates its
-    listed segments at each of tile_rows x tile_c cells (dominated by the
-    hash+Box-Muller transcendentals — see MARCH_FLOPS_PER_SAMPLE).
-    ``touched_tiles`` = sum over tiles of per-tile segment-list length.
-    HBM: segment SoA read once per column tile's row sweep + RF write."""
-    samples = touched_tiles * tile_rows * tile_c
-    flops = samples * MARCH_FLOPS_PER_SAMPLE
-    bytes_ = soa_bytes + cfg.rf_rows * n_cols * 4
-    return StageCost("march", flops, bytes_, "vpu")
-
-
-def postproc_cost(cfg) -> StageCost:
-    """Fused conv+envelope kernel: separable 7-tap axial + 13-tap lateral
-    over the (rows, cols) RF image (2 FLOPs/tap) + the envelope's ~9
-    log-step shifted scans (~8 ops each) + peak detect/lerp (~15)."""
-    import math
-
-    cells = cfg.rf_rows * cfg.rf_cols
-    scan_steps = max(1, math.ceil(math.log2(max(cfg.rf_rows, 2))))
-    flops = cells * (
-        2 * (cfg.psf_axial_size + cfg.psf_lateral_size) + scan_steps * 8 + 15
+def march_cost(cfg, touched_cells: int, soa_bytes: int, n_cols: int) -> StageCost:
+    """Output-stationary march kernel: ``touched_cells`` = the (row, col,
+    segment) cells evaluated (each listed segment at every cell of its row
+    tiles). Bytes: the segment SoA read per touching tile + the RF write."""
+    return StageCost(
+        "march",
+        touched_cells * MARCH_FLOPS_PER_SAMPLE,
+        soa_bytes + cfg.rf_rows * n_cols * 4,
     )
-    bytes_ = cells * 4 * 2  # RF in + envelope out; intermediates stay in VMEM
-    return StageCost("postproc", flops, bytes_, "vpu")
-
-
-def scanconv_cost(cfg, band_r: int | None = None,
-                  banded: tuple | None = None) -> StageCost:
-    """MXU one-hot-matmul scan conversion: per output row, a
-    (rf_cols x K) @ (K x w_pad) bf16 matmul plus the one-hot build,
-    2 FLOPs/MAC — K = the full padded RF row count, ``band_r`` for the
-    (rejected r4) per-column-tile banded kernel, or ``banded=(band_k,
-    split_rows)`` for the r5 split kernel (split_rows apex rows at full
-    contraction, the rest over band_k-row windows)."""
-    r_pad = ((cfg.rf_rows + 127) // 128) * 128
-    w_pad = ((cfg.bmode_cols + 127) // 128) * 128
-    if banded is not None:
-        band_k, split_rows = banded
-        flops = 2.0 * cfg.rf_cols * w_pad * (
-            split_rows * r_pad + (cfg.bmode_rows - split_rows) * band_k
-        )
-    else:
-        k = band_r if band_r else r_pad
-        flops = 2.0 * cfg.bmode_rows * cfg.rf_cols * k * w_pad
-    bytes_ = (
-        cfg.rf_rows * cfg.rf_cols * 4          # RF image (VMEM-resident)
-        + cfg.bmode_rows * 8 * w_pad * 4       # interpolation table
-        + cfg.bmode_rows * cfg.bmode_cols * 4  # output
-    )
-    # Problem-inherent work: each output pixel is a 4-tap bilinear lookup
-    # (4 MACs = 8 FLOPs). Everything above that is formulation cost paid to
-    # ride the MXU instead of serialised gathers.
-    useful = 8.0 * cfg.bmode_rows * cfg.bmode_cols
-    return StageCost("scan_convert", flops, bytes_, "mxu", useful_flops=useful)

@@ -1,10 +1,10 @@
 // Native host-side runtime for mcray_tpu.
 //
-// TPU-native equivalents of the reference's native dependencies (SURVEY.md
+// Equivalents of the reference's native dependencies (SURVEY.md
 // §2.2): Bullet's quantized BVH build (reference src/scene.cpp:306-309) and
 // the vendored tinyobjloader (reference src/wavefront/tiny_obj_loader.cpp).
 // Scene compilation is host work; this library does the heavy O(T log T)
-// parts in C++ and hands flat arrays to the JAX/Pallas traversal kernels.
+// parts in C++ and hands flat arrays to the JAX traversal paths.
 // Exposed through ctypes (mcray_tpu/utils/native.py) — no pybind needed.
 //
 // BVH: binned SAH (16 bins), flat depth-first layout:

@@ -1,7 +1,6 @@
 // Sequential C++ baseline: the reference's per-frame algorithm, re-implemented
-// single-threaded at C++ speed so BASELINE.md's "vs_baseline" factor is
-// measured against a defensible apples-to-apples CPU number instead of a
-// Python proxy (VERDICT r1 "What's missing" item 1).
+// single-threaded at C++ speed, so the device path can be compared with a
+// defensible apples-to-apples CPU number.
 //
 // The actual reference (thepochynsons/MCRay-Tracing) cannot be built in this
 // image (no Bullet / OpenCV dev libraries), so this file re-creates its frame
@@ -15,8 +14,8 @@
 //           sequential peak-lerp envelope walk (src/rfimage.h:54-91),
 //           bilinear polar scan conversion (src/rfimage.h:139,183-215)
 //
-// Charitable deviations (all make THIS baseline faster, so the reported
-// speedup of the TPU path is conservative):
+// Charitable deviations (all make THIS baseline faster, so a speedup
+// reported against it is conservative):
 //  - one mt19937 seeded once, instead of the reference's per-call
 //    std::random_device reseeding (src/ray.cpp:85-87,174-177,216-218)
 //  - our binned-SAH BVH (mcray_native.cpp) instead of Bullet's quantized BVH
@@ -24,7 +23,7 @@
 //
 // Driven by scripts/ref_baseline_bench.py over ctypes; geometry, probe
 // layout, PSF kernels and scan maps are passed in from the same Python scene
-// compiler the TPU path uses, so the workload is identical.
+// compiler the device path uses, so the workload is identical.
 
 #include <algorithm>
 #include <chrono>

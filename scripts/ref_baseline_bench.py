@@ -4,17 +4,16 @@ Drives native/ref_baseline.cpp (a single-threaded C++ re-implementation of
 the reference's frame loop — trace with BVH closest-hit, segment march with
 texture-table lookups, uncentered PSF convolution, peak-lerp envelope, polar
 scan conversion) over ctypes on the SAME compiled scene, probe layout, PSF
-kernels and scan maps the TPU path uses. This replaces the round-1 "2-core
-CPU proxy" with a defensible apples-to-apples number (VERDICT r1 item 6):
-the reference itself cannot be built here (no Bullet/OpenCV dev libs), and a
-C++ port of its algorithm at full optimisation is the charitable stand-in —
-it even skips the reference's per-call std::random_device reseeding, so the
-reported TPU speedup is conservative.
+kernels and scan maps the device path uses: a defensible apples-to-apples
+CPU number. The reference itself cannot be built without Bullet/OpenCV dev
+libs, and a C++ port of its algorithm at full optimisation is the
+charitable stand-in — it even skips the reference's per-call
+std::random_device reseeding, so a speedup reported against it is
+conservative.
 
 Usage: python scripts/ref_baseline_bench.py [--scene assets/sphere/sphere.scene]
                                             [--frames 5] [--json]
-Prints per-stage ms, rays/s (ray-cast queries per second, the BASELINE.json
-metric) and frames/s.
+Prints per-stage ms, rays/s (ray-cast queries per second) and frames/s.
 """
 
 from __future__ import annotations

@@ -40,10 +40,10 @@ def test_sweep_cli(tmp_path):
         "sweep", SCENE, "--frames", "2", "--elements", "16", "--samples", "1",
         "--out-prefix", prefix, "--delta-pos", "0", "0.5", "0",
     ]) == 0
-    from PIL import Image
+    from mcray_tpu.utils.image_io import load_png
 
-    a = np.array(Image.open(prefix + "_000.png"), float)
-    b = np.array(Image.open(prefix + "_001.png"), float)
+    a = load_png(prefix + "_000.png").astype(float)
+    b = load_png(prefix + "_001.png").astype(float)
     assert a.shape == b.shape
     assert np.abs(a - b).max() > 0
 

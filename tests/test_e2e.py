@@ -123,7 +123,7 @@ def test_probe_pose_differentiable(sim):
     def loss(pos):
         out = sim._render(
             jax.random.PRNGKey(0), sim.materials, pos,
-            jnp.asarray(sim.pack.transducer_angles), hash(sim.cfg),
+            jnp.asarray(sim.pack.transducer_angles),
         )
         return out["bmode"].sum()
 

@@ -233,3 +233,79 @@ def test_render_with_hilbert_envelope(sphere_pack):
     out = sim.render_frame(seed=0)
     b = np.asarray(out["bmode"])
     assert np.isfinite(b).all() and b.max() > 0
+
+
+# ---------------------------------------------------------------------------
+# The plain-XLA imaging stages at full width (they run on every backend)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("probe", ["convex", "linear", "phased"])
+def test_scan_convert_matches_scipy_map_coordinates(rng, probe):
+    """imaging.scan_convert is scipy's order-1 map_coordinates with zero fill
+    outside the grid (cv::remap INTER_LINEAR, BORDER_CONSTANT: taps beyond
+    the edge read 0, which scipy calls "grid-constant") on each probe
+    family's maps."""
+    from scipy import ndimage
+
+    cfg = SimConfig(probe_type=probe)
+    map_row, map_col = imaging.scan_conversion_maps(cfg)
+    rf = rng.standard_normal((cfg.rf_rows, cfg.rf_cols)).astype(np.float32)
+    ref = ndimage.map_coordinates(
+        rf.astype(np.float64), [map_row, map_col], order=1, mode="grid-constant",
+        cval=0.0,
+    )
+    out = np.asarray(
+        imaging.scan_convert(jnp.asarray(rf), jnp.asarray(map_row), jnp.asarray(map_col))
+    )
+    assert out.shape == (cfg.bmode_rows, cfg.bmode_cols)
+    np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
+
+
+def test_scan_convert_border_zero():
+    # the convex maps reach outside the RF grid near the sector edges:
+    # out-of-range pixels are exactly zero, fully-inside ones interpolate
+    cfg = SimConfig()
+    map_row, map_col = imaging.scan_conversion_maps(cfg)
+    rf = np.ones((cfg.rf_rows, cfg.rf_cols), np.float32)
+    out = np.asarray(
+        imaging.scan_convert(jnp.asarray(rf), jnp.asarray(map_row), jnp.asarray(map_col))
+    )
+    fully_out = (map_row < -1) | (map_row > cfg.rf_rows) | (map_col < -1) | (
+        map_col > cfg.rf_cols
+    )
+    assert fully_out.any()
+    np.testing.assert_array_equal(out[fully_out], 0.0)
+    fully_in = (map_row >= 0) & (map_row <= cfg.rf_rows - 2) & (map_col >= 0) & (
+        map_col <= cfg.rf_cols - 2
+    )
+    np.testing.assert_allclose(out[fully_in], 1.0, rtol=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(465, 512), (465, 64), (60, 128)])
+def test_convolve_envelope_matches_sequential_oracle(rng, shape):
+    """PSF convolution + envelope, the post-march stages of every frame,
+    against the sequential ports of the reference loops at the full-width
+    RF shape, a shard's width, and a short image."""
+    cfg = SimConfig()
+    rf = rng.standard_normal(shape).astype(np.float32)
+    ref = oracle_envelope(
+        oracle_convolve(rf.astype(np.float64), np.asarray(axial_kernel(cfg)),
+                        np.asarray(lateral_kernel(cfg)))
+    )
+    out = np.asarray(imaging.envelope(imaging.convolve_psf(jnp.asarray(rf), cfg)))
+    np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-5)
+
+
+def test_convolve_envelope_sparse_rf(rng):
+    # realistic sparse RF (mostly zeros + a few echoes) exercises the
+    # no-peak / tail-after-last-peak paths
+    cfg = small_test_config()
+    rf = np.zeros((cfg.rf_rows, 64), np.float32)
+    n = 200
+    rf[rng.integers(0, cfg.rf_rows, n), rng.integers(0, 64, n)] = rng.standard_normal(n)
+    ref = oracle_envelope(
+        oracle_convolve(rf.astype(np.float64), np.asarray(axial_kernel(cfg)),
+                        np.asarray(lateral_kernel(cfg)))
+    )
+    out = np.asarray(imaging.envelope(imaging.convolve_psf(jnp.asarray(rf), cfg)))
+    np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-5)

@@ -1,432 +1,182 @@
-"""Pallas tiled intersect kernel vs jnp brute force (interpret mode)."""
+"""Listed intersect kernel (Triton route) vs the jnp brute force, in
+interpret mode on the CPU, plus its lowering to Triton IR for the GPU."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
+from mcray_tpu.ops.bvh import build_bvh
 from mcray_tpu.ops.geometry import intersect_closest
-from mcray_tpu.ops.pallas.intersect import intersect_closest_pallas
+from mcray_tpu.ops.pallas.intersect import (
+    NO_HIT_T,
+    _assemble_lists,
+    _packet_cluster_lists,
+    intersect_closest_listed,
+    pack_tris_culled,
+)
+from mcray_tpu.scene.primitives import ellipsoid_mesh
 
 
-def _random_scene(rng, t):
+def _random_soup(rng, t=700):
     centers = rng.uniform(-5, 5, (t, 1, 3))
     tris = (centers + rng.standard_normal((t, 3, 3)) * 0.8).astype(np.float32)
-    mid = rng.integers(0, 6, (t,)).astype(np.int32)
-    return jnp.asarray(tris), jnp.asarray(mid)
+    return tris, rng.integers(0, 6, (t,)).astype(np.int32)
 
 
-def test_pallas_intersect_matches_jnp(rng):
-    tris, mid = _random_scene(rng, 700)  # forces triangle padding (700 % 256 != 0)
-    n = 150  # forces ray padding
-    o = jnp.asarray(rng.uniform(-6, 6, (n, 3)), jnp.float32)
-    seg = jnp.asarray(rng.standard_normal((n, 3)) * 8, jnp.float32)
-    a = intersect_closest(o, seg, tris, mid)
-    b = intersect_closest_pallas(o, seg, tris, mid, interpret=True)
-    np.testing.assert_array_equal(np.asarray(a["hit"]), np.asarray(b["hit"]))
-    np.testing.assert_allclose(np.asarray(a["t"]), np.asarray(b["t"]), rtol=1e-5, atol=1e-7)
-    hit = np.asarray(a["hit"])
-    np.testing.assert_array_equal(
-        np.asarray(a["mesh_id"])[hit], np.asarray(b["mesh_id"])[hit]
-    )
-    np.testing.assert_allclose(
-        np.asarray(a["normal"])[hit], np.asarray(b["normal"])[hit], atol=1e-5
-    )
-
-
-def test_pallas_intersect_no_hits(rng):
-    tris, mid = _random_scene(rng, 300)
-    o = jnp.full((10, 3), 100.0)
-    seg = jnp.tile(jnp.array([[1.0, 0.0, 0.0]]), (10, 1))
-    b = intersect_closest_pallas(o, seg, tris, mid, interpret=True)
-    assert not np.asarray(b["hit"]).any()
-    assert (np.asarray(b["mesh_id"]) == -1).all()
-
-
-def test_culled_intersect_matches_jnp(rng):
-    from mcray_tpu.ops.bvh import build_bvh
-    from mcray_tpu.ops.pallas.intersect import (
-        intersect_closest_culled,
-        pack_tris_culled,
-    )
-
-    tris, mid = _random_scene(rng, 700)
-    bvh = build_bvh(np.asarray(tris))
-    packed = pack_tris_culled(np.asarray(tris), np.asarray(mid), bvh.tri_order)
-    n = 150
-    o = jnp.asarray(rng.uniform(-6, 6, (n, 3)), jnp.float32)
-    seg = jnp.asarray(rng.standard_normal((n, 3)) * 8, jnp.float32)
-    a = intersect_closest(o, seg, tris, mid)
-    b = intersect_closest_culled(o, seg, packed, interpret=True)
-    np.testing.assert_array_equal(np.asarray(a["hit"]), np.asarray(b["hit"]))
-    np.testing.assert_allclose(np.asarray(a["t"]), np.asarray(b["t"]), rtol=1e-5, atol=1e-7)
-    hit = np.asarray(a["hit"])
-    np.testing.assert_array_equal(
-        np.asarray(a["mesh_id"])[hit], np.asarray(b["mesh_id"])[hit]
-    )
-    np.testing.assert_allclose(
-        np.asarray(a["normal"])[hit], np.asarray(b["normal"])[hit], atol=1e-5
-    )
-
-
-def test_staged_intersect_matches_jnp(rng):
-    from mcray_tpu.ops.bvh import build_bvh
-    from mcray_tpu.ops.pallas.intersect import (
-        intersect_closest_staged,
-        pack_tris_culled,
-    )
-
-    tris, mid = _random_scene(rng, 700)
-    bvh = build_bvh(np.asarray(tris))
-    packed = pack_tris_culled(np.asarray(tris), np.asarray(mid), bvh.tri_order)
-    n = 150
-    o = jnp.asarray(rng.uniform(-6, 6, (n, 3)), jnp.float32)
-    seg = jnp.asarray(rng.standard_normal((n, 3)) * 8, jnp.float32)
-    a = intersect_closest(o, seg, tris, mid)
-    b = intersect_closest_staged(o, seg, packed, interpret=True)
-    np.testing.assert_array_equal(np.asarray(a["hit"]), np.asarray(b["hit"]))
-    np.testing.assert_allclose(np.asarray(a["t"]), np.asarray(b["t"]), rtol=1e-5, atol=1e-7)
-    hit = np.asarray(a["hit"])
-    np.testing.assert_array_equal(
-        np.asarray(a["mesh_id"])[hit], np.asarray(b["mesh_id"])[hit]
-    )
-    np.testing.assert_allclose(
-        np.asarray(a["normal"])[hit], np.asarray(b["normal"])[hit], atol=1e-5
-    )
-
-
-def test_staged_intersect_coherent_fan(rng):
-    from mcray_tpu.ops.bvh import build_bvh
-    from mcray_tpu.ops.pallas.intersect import (
-        intersect_closest_staged,
-        pack_tris_culled,
-    )
-    from mcray_tpu.scene.primitives import ellipsoid_mesh
-
-    parts = []
-    mids = []
+def _nested_shells():
+    parts, mids = [], []
     for k, r in enumerate([2.0, 4.0, 6.0]):
         v, f = ellipsoid_mesh(radii=(r, r, r), center=(0, 0, 0), n_theta=24, n_phi=48)
         parts.append(v[f])
         mids.append(np.full((f.shape[0],), k, np.int32))
-    tris = np.concatenate(parts).astype(np.float32)
-    mid = np.concatenate(mids)
-    bvh = build_bvh(tris)
-    packed = pack_tris_culled(tris, mid, bvh.tri_order)
-
-    n = 256
-    theta = np.linspace(-0.5, 0.5, n)
-    o = jnp.asarray(np.tile([[0.0, -10.0, 0.0]], (n, 1)), jnp.float32)
-    seg = jnp.asarray(
-        np.stack([np.sin(theta) * 25, np.cos(theta) * 25, np.zeros(n)], -1),
-        jnp.float32,
-    )
-    a = intersect_closest(o, seg, jnp.asarray(tris), jnp.asarray(mid))
-    b = intersect_closest_staged(o, seg, packed, interpret=True)
-    np.testing.assert_array_equal(np.asarray(a["hit"]), np.asarray(b["hit"]))
-    np.testing.assert_allclose(np.asarray(a["t"]), np.asarray(b["t"]), rtol=1e-5, atol=1e-7)
+    return np.concatenate(parts).astype(np.float32), np.concatenate(mids)
 
 
-def test_listed_intersect_matches_jnp(rng):
-    from mcray_tpu.ops.bvh import build_bvh
-    from mcray_tpu.ops.pallas.intersect import (
-        intersect_closest_listed,
-        intersect_sorted,
-        pack_tris_culled,
-    )
-
-    tris, mid = _random_scene(rng, 700)
-    bvh = build_bvh(np.asarray(tris))
-    packed = pack_tris_culled(np.asarray(tris), np.asarray(mid), bvh.tri_order)
-    n = 150
-    o = jnp.asarray(rng.uniform(-6, 6, (n, 3)), jnp.float32)
-    seg = jnp.asarray(rng.standard_normal((n, 3)) * 8, jnp.float32)
-    a = intersect_closest(o, seg, tris, mid)
-    b = intersect_closest_listed(o, seg, packed, interpret=True)
-    # and through the coherence-sorting wrapper (the production composition)
-    c = intersect_sorted(
-        lambda oo, ss, p: intersect_closest_listed(oo, ss, p, interpret=True),
-        o, seg, packed,
-    )
-    for out in (b, c):
-        np.testing.assert_array_equal(np.asarray(a["hit"]), np.asarray(out["hit"]))
-        np.testing.assert_allclose(
-            np.asarray(a["t"]), np.asarray(out["t"]), rtol=1e-5, atol=1e-7
-        )
-        hit = np.asarray(a["hit"])
-        np.testing.assert_array_equal(
-            np.asarray(a["mesh_id"])[hit], np.asarray(out["mesh_id"])[hit]
-        )
-        np.testing.assert_allclose(
-            np.asarray(a["normal"])[hit], np.asarray(out["normal"])[hit], atol=1e-5
-        )
+def _clustered(rng):
+    """Triangles packed into a few tight, overlapping blobs: many cluster
+    boxes overlap, so packets carry long lists and the early stop matters."""
+    centers = rng.uniform(-4, 4, (4, 1, 1, 3))
+    tris = centers + rng.standard_normal((4, 150, 3, 3)) * 0.6
+    return tris.reshape(-1, 3, 3).astype(np.float32), rng.integers(0, 3, (600,)).astype(np.int32)
 
 
-def test_grouped_intersect_matches_jnp(rng):
-    """Cluster-major grouped kernel (VERDICT r4 item 1 — per-ray-grade
-    pruning for incoherent rays): must be exact vs the jnp brute force on
-    isotropic rays, on coherent fans (which overflow every per-cluster ray
-    budget and exercise the residual listed pass), and with dead rays."""
-    from mcray_tpu.ops.bvh import build_bvh
-    from mcray_tpu.ops.pallas.intersect import (
-        intersect_closest_grouped,
-        pack_tris_culled,
-    )
-
-    tris, mid = _random_scene(rng, 900)
-    bvh = build_bvh(np.asarray(tris))
-    packed = pack_tris_culled(
-        np.asarray(tris), np.asarray(mid), bvh.tri_order, tile_t=128
-    )
-    n = 300
-    # isotropic bounce-style rays + some parked dead rays
-    o = jnp.asarray(rng.uniform(-8, 8, (n, 3)), jnp.float32)
-    seg = jnp.asarray(rng.standard_normal((n, 3)) * 9, jnp.float32)
-    dead = rng.uniform(size=n) < 0.2
-    seg = jnp.where(jnp.asarray(dead)[:, None], 0.0, seg)
-    o = jnp.where(jnp.asarray(dead)[:, None], 1e9, o)
-    # coherent fan: every ray from one apex -> massive per-cluster overflow
-    o_fan = jnp.broadcast_to(jnp.asarray([-9.0, 0.0, 0.0]), (n, 3))
-    th = np.linspace(-0.4, 0.4, n)
-    seg_fan = jnp.asarray(
-        np.stack([np.cos(th) * 20, np.sin(th) * 20, np.zeros(n)], -1),
-        jnp.float32,
-    )
-    for oo, ss, label in ((o, seg, "bounce+dead"), (o_fan, seg_fan, "fan")):
-        a = intersect_closest(oo, ss, tris, mid)
-        for kw in (
-            {"group_g": 32, "chunk_g": 4},
-            {"group_g": 8, "chunk_g": 1},
-            # batch_b > n_clusters forces the cluster-padding path
-            # (hbm_tris/counts padded to a batch multiple)
-            {"group_g": 16, "chunk_g": 2, "batch_b": 16},
-        ):
-            b = intersect_closest_grouped(oo, ss, packed, interpret=True, **kw)
-            np.testing.assert_array_equal(
-                np.asarray(a["hit"]), np.asarray(b["hit"]), err_msg=label
-            )
-            np.testing.assert_allclose(
-                np.asarray(a["t"]), np.asarray(b["t"]), rtol=1e-5, atol=1e-7,
-                err_msg=label,
-            )
-            hit = np.asarray(a["hit"])
-            np.testing.assert_array_equal(
-                np.asarray(a["mesh_id"])[hit], np.asarray(b["mesh_id"])[hit],
-                err_msg=label,
-            )
+def _rays(rng, scene, n):
+    if scene == "fan":
+        # convex-fan primary rays (the real workload) from one apex
+        th = np.linspace(-0.5, 0.5, n)
+        o = np.tile([[0.0, -10.0, 0.0]], (n, 1))
+        s = np.stack([np.sin(th) * 25, np.cos(th) * 25, np.zeros(n)], -1)
+    else:
+        o = rng.uniform(-6, 6, (n, 3))
+        s = rng.standard_normal((n, 3)) * 8
+    o, s = o.astype(np.float32), s.astype(np.float32)
+    if scene == "dead":
+        # parked dead rays, exactly as the bounce loop parks them
+        o[::3] = 1e9
+        s[::3] = 0.0
+    return jnp.asarray(o), jnp.asarray(s)
 
 
-def test_listed_two_pass_matches_jnp(rng):
-    """passes=2 (front clusters, then per-ray-capped second prepass) must be
-    exact: a cluster whose slab entry is past a ray's pass-1 best t cannot
-    hold a closer hit, so pruning on it never changes the closest hit."""
-    from mcray_tpu.ops.bvh import build_bvh
-    from mcray_tpu.ops.pallas.intersect import (
-        intersect_closest_listed,
-        pack_tris_culled,
-    )
-
-    tris, mid = _random_scene(rng, 900)
-    bvh = build_bvh(np.asarray(tris))
-    packed = pack_tris_culled(
-        np.asarray(tris), np.asarray(mid), bvh.tri_order, tile_t=128
-    )
-    n = 300
-    # mix of hitting rays (toward the cloud) and sure misses (away from it)
-    o = jnp.asarray(rng.uniform(-8, 8, (n, 3)), jnp.float32)
-    seg = jnp.asarray(rng.standard_normal((n, 3)) * 9, jnp.float32)
-    a = intersect_closest(o, seg, tris, mid)
-    for front_k in (1, 3, 64):
-        b = intersect_closest_listed(
-            o, seg, packed, interpret=True, passes=2, front_k=front_k
-        )
-        np.testing.assert_array_equal(np.asarray(a["hit"]), np.asarray(b["hit"]))
-        np.testing.assert_allclose(
-            np.asarray(a["t"]), np.asarray(b["t"]), rtol=1e-5, atol=1e-7
-        )
-        hit = np.asarray(a["hit"])
-        np.testing.assert_array_equal(
-            np.asarray(a["mesh_id"])[hit], np.asarray(b["mesh_id"])[hit]
-        )
-
-
-def test_listed_frustum_prepass_matches_jnp(rng):
-    """The interval-arithmetic packet prepass must list a SUPERSET of the
-    exact per-ray lists, and the kernel result must stay exact (per-ray
-    AABB re-check absorbs the extras). Includes parked dead rays."""
-    from mcray_tpu.ops.bvh import build_bvh
-    from mcray_tpu.ops.pallas.intersect import (
-        _packet_cluster_lists,
-        intersect_closest_listed,
-        intersect_sorted,
-        pack_tris_culled,
-    )
-
-    tris, mid = _random_scene(rng, 900)
-    bvh = build_bvh(np.asarray(tris))
-    packed = pack_tris_culled(
-        np.asarray(tris), np.asarray(mid), bvh.tri_order, tile_t=128
-    )
-    n = 256
-    o = np.asarray(rng.uniform(-8, 8, (n, 3)), np.float32)
-    seg = np.asarray(rng.standard_normal((n, 3)) * 9, np.float32)
-    # park a handful of dead rays exactly as the bounce loop does
-    o[::17] = 1e9
-    seg[::17] = 0.0
-    o, seg = jnp.asarray(o), jnp.asarray(seg)
-
-    ce, ide, _ = _packet_cluster_lists(o, seg, packed, tile_r=128)
-    cf, idf, _ = _packet_cluster_lists(o, seg, packed, tile_r=128, method="frustum")
-    for p in range(int(ce.shape[0])):
-        exact = set(np.asarray(ide)[p, : int(ce[p, 0])].tolist())
-        frus = set(np.asarray(idf)[p, : int(cf[p, 0])].tolist())
-        assert exact <= frus, f"packet {p}: frustum list missed {exact - frus}"
-
-    a = intersect_closest(o, seg, tris, mid)
-    b = intersect_sorted(
-        lambda oo, ss, p2: intersect_closest_listed(
-            oo, ss, p2, interpret=True, list_method="frustum"
-        ),
-        o, seg, packed,
-    )
-    np.testing.assert_array_equal(np.asarray(a["hit"]), np.asarray(b["hit"]))
-    np.testing.assert_allclose(
-        np.asarray(a["t"]), np.asarray(b["t"]), rtol=1e-5, atol=1e-7
-    )
-
-
-def test_listed_hier_prepass_matches_jnp(rng):
-    """The hierarchical prepass (exact per-ray slab at SUPER level x frustum
-    interval at cluster level) must list a SUPERSET of the exact per-ray
-    lists with keys that never exceed the exact keys (both are early-stop
-    lower bounds), and the kernel result must stay exact. Includes parked
-    dead rays and a small super_g so multiple supers exist."""
-    from mcray_tpu.ops.bvh import build_bvh
-    from mcray_tpu.ops.pallas.intersect import (
-        _packet_cluster_lists,
-        intersect_closest_listed,
-        pack_tris_culled,
-    )
-
-    tris, mid = _random_scene(rng, 900)
-    bvh = build_bvh(np.asarray(tris))
-    packed = pack_tris_culled(
-        np.asarray(tris), np.asarray(mid), bvh.tri_order, tile_t=128, super_g=2
-    )
-    n = 256
-    o = np.asarray(rng.uniform(-8, 8, (n, 3)), np.float32)
-    seg = np.asarray(rng.standard_normal((n, 3)) * 9, np.float32)
-    o[::17] = 1e9
-    seg[::17] = 0.0
-    o, seg = jnp.asarray(o), jnp.asarray(seg)
-
-    ce, ide, ke = _packet_cluster_lists(o, seg, packed, tile_r=128)
-    ch, idh, kh = _packet_cluster_lists(o, seg, packed, tile_r=128, method="hier")
-    for p in range(int(ce.shape[0])):
-        exact = {
-            int(c): float(k)
-            for c, k in zip(
-                np.asarray(ide)[p, : int(ce[p, 0])], np.asarray(ke)[p, : int(ce[p, 0])]
-            )
-        }
-        hier = {
-            int(c): float(k)
-            for c, k in zip(
-                np.asarray(idh)[p, : int(ch[p, 0])], np.asarray(kh)[p, : int(ch[p, 0])]
-            )
-        }
-        assert set(exact) <= set(hier), f"packet {p}: hier missed {set(exact) - set(hier)}"
-        for c, k_exact in exact.items():
-            assert hier[c] <= k_exact + 1e-6, (
-                f"packet {p} cluster {c}: hier key {hier[c]} > exact {k_exact}"
-            )
-
-    a = intersect_closest(o, seg, tris, mid)
-    b = intersect_closest_listed(o, seg, packed, interpret=True, list_method="hier")
-    np.testing.assert_array_equal(np.asarray(a["hit"]), np.asarray(b["hit"]))
-    np.testing.assert_allclose(
-        np.asarray(a["t"]), np.asarray(b["t"]), rtol=1e-5, atol=1e-7
-    )
+@pytest.mark.parametrize("scene", ["soup", "fan", "dead", "clustered"])
+def test_listed_intersect_matches_brute_force(rng, scene):
+    tris, mid = {
+        "soup": _random_soup, "dead": _random_soup, "clustered": _clustered,
+        "fan": lambda _: _nested_shells(),
+    }[scene](rng)
+    packed = pack_tris_culled(tris, mid, build_bvh(tris).tri_order,
+                              sort_origin=np.zeros(3))
+    o, s = _rays(rng, scene, 150)  # 150 % TILE_R != 0: ray padding
+    a = intersect_closest(o, s, jnp.asarray(tris), jnp.asarray(mid))
+    b = intersect_closest_listed(o, s, packed, interpret=True)
     hit = np.asarray(a["hit"])
+    assert hit.any()
+    np.testing.assert_array_equal(hit, np.asarray(b["hit"]))
+    np.testing.assert_allclose(np.asarray(a["t"]), np.asarray(b["t"]), rtol=1e-5, atol=1e-7)
     np.testing.assert_array_equal(
         np.asarray(a["mesh_id"])[hit], np.asarray(b["mesh_id"])[hit]
     )
+    if scene != "fan":
+        # the fan lies in the shells' z=0 plane of shared triangle edges,
+        # where two triangles tie at the same t and either normal is right
+        np.testing.assert_allclose(
+            np.asarray(a["normal"])[hit], np.asarray(b["normal"])[hit], atol=1e-5
+        )
+    assert (np.asarray(b["mesh_id"])[~hit] == -1).all()
+
+
+def test_listed_intersect_no_hits(rng):
+    """Empty per-packet lists (no survivors) return misses."""
+    tris, mid = _random_soup(rng, 300)
+    packed = pack_tris_culled(tris, mid)
+    o = jnp.full((40, 3), 100.0)
+    s = jnp.tile(jnp.array([[1.0, 0.0, 0.0]]), (40, 1))
+    b = intersect_closest_listed(o, s, packed, interpret=True)
+    assert not np.asarray(b["hit"]).any()
+    assert (np.asarray(b["mesh_id"]) == -1).all()
+
+
+def test_listed_intersect_batched(rng):
+    """vmap over frames batches the kernel grid (render_batch)."""
+    tris, mid = _random_soup(rng)
+    packed = pack_tris_culled(tris, mid)
+    o, s = _rays(rng, "soup", 64)
+    single = intersect_closest_listed(o, s, packed, interpret=True)["t"]
+    batched = jax.vmap(
+        lambda oo: intersect_closest_listed(oo, s, packed, interpret=True)["t"]
+    )(jnp.stack([o, o + 0.1]))
+    np.testing.assert_array_equal(np.asarray(batched[0]), np.asarray(single))
+
+
+def test_packet_lists_hold_every_hit_cluster(rng):
+    """Each ray's closest hit lies in a cluster on its packet's list, and
+    the list's first key lower-bounds it (the early stop's soundness)."""
+    from mcray_tpu.ops.geometry import _moller_trumbore
+
+    tris, mid = _random_soup(rng, 900)
+    packed = pack_tris_culled(tris, mid, build_bvh(tris).tri_order)
+    o, s = _rays(rng, "soup", 128)
+    counts, ids, keys = map(np.asarray, _packet_cluster_lists(o, s, packed, 32))
+    a = intersect_closest(o, s, jnp.asarray(tris), jnp.asarray(mid))
+    hit, t = np.asarray(a["hit"]), np.asarray(a["t"])
+    slots = np.asarray(packed.slot_all).reshape(-1, packed.tile_t, 10)
+    assert hit.any()
+    for r in np.flatnonzero(hit):
+        p = r // 32
+        listed = slots[ids[p, : counts[p]]].reshape(-1, 10)
+        t_l, ok = _moller_trumbore(
+            o[r], s[r], jnp.asarray(listed[:, 0:3]), jnp.asarray(listed[:, 3:6]),
+            jnp.asarray(listed[:, 6:9]),
+        )
+        best = np.min(np.where(np.asarray(ok), np.asarray(t_l), NO_HIT_T))
+        np.testing.assert_allclose(best, t[r], rtol=1e-5)
+        assert keys[p, 0] <= t[r] + 1e-6
 
 
 def test_assemble_lists_contract(rng):
-    """The listed kernel's loop correctness rests on _assemble_lists'
-    invariants: survivors occupy the first `counts` slots, their keys ascend
-    (the early-stop reads keys[it+1] as a lower bound for ALL later slots),
-    ids are a permutation of range(C), and non-survivor key slots are inert
-    (== NO_HIT_T >= any real key)."""
-    import jax.numpy as jnp
-
-    from mcray_tpu.ops.pallas.intersect import NO_HIT_T, _assemble_lists
-
+    """The kernel's loop correctness rests on _assemble_lists' invariants:
+    survivors occupy the first `counts` slots, their keys ascend (the early
+    stop reads keys[it] as a lower bound for ALL later slots), ids are a
+    permutation of range(C), and non-survivor key slots are inert."""
     P, C = 6, 37
     any_hit = rng.random((P, C)) < 0.3
     key = rng.random((P, C)).astype(np.float32)
-    counts, ids, keys = _assemble_lists(
+    counts, ids, keys = map(np.asarray, _assemble_lists(
         jnp.asarray(any_hit), jnp.asarray(key)
-    )
-    counts, ids, keys = map(np.asarray, (counts, ids, keys))
+    ))
     for p in range(P):
-        n = counts[p, 0]
+        n = counts[p]
         assert n == any_hit[p].sum()
         assert sorted(ids[p].tolist()) == list(range(C))
-        surv = ids[p, :n]
-        assert any_hit[p, surv].all()
+        assert any_hit[p, ids[p, :n]].all()
         assert (np.diff(keys[p, :n]) >= 0).all()
-        np.testing.assert_allclose(keys[p, :n], np.sort(key[p, any_hit[p]]),
-                                   rtol=1e-6)
+        np.testing.assert_allclose(keys[p, :n], np.sort(key[p, any_hit[p]]), rtol=1e-6)
         assert (keys[p, n:] == NO_HIT_T).all()
 
 
-def test_listed_intersect_no_hits_and_dead_rays(rng):
-    """Empty per-packet lists (no survivors) and parked dead rays (zero
-    segment at 1e9 — the bounce loop's dead-ray convention) return misses."""
-    from mcray_tpu.ops.bvh import build_bvh
-    from mcray_tpu.ops.pallas.intersect import (
-        intersect_closest_listed,
-        pack_tris_culled,
-    )
+def test_pack_tris_culled_layout(rng):
+    """Clusters hold every triangle once (padding slots degenerate, mesh id
+    -1), and each cluster's AABB bounds its triangles."""
+    tris, mid = _random_soup(rng, 150)
+    packed = pack_tris_culled(tris, mid, sort_origin=np.zeros(3), tile_t=64)
+    slots = np.asarray(packed.slot_all)
+    assert packed.n_slots == 192 and slots.shape == (192, 10)
+    real = slots[:, 9] >= 0
+    assert real.sum() == 150
+    assert (slots[~real, 3:9] == 0).all()
+    np.testing.assert_array_equal(np.sort(slots[real, 9]), np.sort(mid))
+    tiles = np.asarray(packed.tiles)  # (n_clusters, 9, tile_t)
+    aabb = np.asarray(packed.aabb_cluster)
+    for c in range(tiles.shape[0]):
+        ok = real[c * 64 : (c + 1) * 64]
+        v0 = tiles[c, 0:3].T[ok]
+        assert (v0 >= aabb[c, 0:3] - 1e-6).all() and (v0 <= aabb[c, 3:6] + 1e-6).all()
 
-    tris, mid = _random_scene(rng, 300)
-    bvh = build_bvh(np.asarray(tris))
-    packed = pack_tris_culled(np.asarray(tris), np.asarray(mid), bvh.tri_order)
-    o = jnp.full((130, 3), 1e9, jnp.float32)
-    seg = jnp.zeros((130, 3), jnp.float32)
-    b = intersect_closest_listed(o, seg, packed, interpret=True)
-    assert not np.asarray(b["hit"]).any()
-    assert (np.asarray(b["mesh_id"]) == -1).all()
 
-
-def test_culled_intersect_coherent_fan(rng):
-    """Convex-fan primary rays (the real workload) against nested shells."""
-    from mcray_tpu.ops.bvh import build_bvh
-    from mcray_tpu.ops.pallas.intersect import (
-        intersect_closest_culled,
-        pack_tris_culled,
-    )
-    from mcray_tpu.scene.primitives import ellipsoid_mesh
-
-    parts = []
-    mids = []
-    for k, r in enumerate([2.0, 4.0, 6.0]):
-        v, f = ellipsoid_mesh(radii=(r, r, r), center=(0, 0, 0), n_theta=24, n_phi=48)
-        parts.append(v[f])
-        mids.append(np.full((f.shape[0],), k, np.int32))
-    tris = np.concatenate(parts).astype(np.float32)
-    mid = np.concatenate(mids)
-    bvh = build_bvh(tris)
-    packed = pack_tris_culled(tris, mid, bvh.tri_order)
-
-    n = 256
-    theta = np.linspace(-0.5, 0.5, n)
-    o = jnp.asarray(np.tile([[0.0, -10.0, 0.0]], (n, 1)), jnp.float32)
-    seg = jnp.asarray(
-        np.stack([np.sin(theta) * 25, np.cos(theta) * 25, np.zeros(n)], -1),
-        jnp.float32,
-    )
-    a = intersect_closest(o, seg, jnp.asarray(tris), jnp.asarray(mid))
-    b = intersect_closest_culled(o, seg, packed, interpret=True)
-    np.testing.assert_array_equal(np.asarray(a["hit"]), np.asarray(b["hit"]))
-    np.testing.assert_allclose(np.asarray(a["t"]), np.asarray(b["t"]), rtol=1e-5, atol=1e-7)
+def test_listed_intersect_lowers_to_triton(rng):
+    tris, mid = _random_soup(rng)
+    packed = pack_tris_culled(tris, mid)
+    o, s = _rays(rng, "soup", 64)
+    f = jax.jit(jax.vmap(lambda oo: intersect_closest_listed(oo, s, packed)["t"]))
+    text = f.trace(jnp.stack([o, o])).lower(lowering_platforms=("cuda",)).as_text()
+    assert text.count("__gpu$xla.gpu.triton") == 1

@@ -27,7 +27,7 @@ def test_pose_fit_ad_machinery():
     key = jax.random.PRNGKey(3)
 
     def render(k, pos, ang):
-        return sim._render(k, sim.materials, pos, ang, hash(cfg))["bmode"]
+        return sim._render(k, sim.materials, pos, ang)["bmode"]
 
     true_pos = jnp.asarray(pack.transducer_position)
     ang = jnp.asarray(pack.transducer_angles)
@@ -55,7 +55,7 @@ def test_pose_fit_fd_recovers_offset():
     sim = Simulator(pack, cfg)
 
     def render(k, pos, ang):
-        return sim._render(k, sim.materials, pos, ang, hash(cfg))["bmode"]
+        return sim._render(k, sim.materials, pos, ang)["bmode"]
 
     true_pos = jnp.asarray(pack.transducer_position)
     ang = jnp.asarray(pack.transducer_angles)

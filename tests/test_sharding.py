@@ -110,66 +110,29 @@ def test_sharded_train_step_runs(setup):
     assert (np.asarray(mats) != np.asarray(r.materials)).any()
 
 
-def test_sharded_pallas_march_matches(setup):
-    # pallas march + culled intersect inside shard_map (interpret mode on
-    # the CPU mesh; the sphere's 2220 tris select the "culled" kernel)
+@pytest.mark.parametrize(
+    "intersect,march",
+    [("brute", "kernel"), ("listed", "jnp"), ("listed", "kernel")],
+)
+def test_sharded_kernels_match(setup, intersect, march):
+    # the Pallas kernels (interpret mode) inside shard_map, alone and
+    # together, must reproduce the jnp sharded render
+    from mcray_tpu.paths import Paths
+
     pack, cfg = setup
     ref = ShardedRenderer(pack, cfg, mesh=make_mesh(4))
     pal = ShardedRenderer(
-        pack, cfg, mesh=make_mesh(4), use_pallas=True, pallas_interpret=True
-    )
-    a = np.asarray(ref.render_frame(0)["bmode"])
-    b = np.asarray(pal.render_frame(0)["bmode"])
-    np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
-
-
-def test_sharded_pallas_listed_intersect_matches(setup):
-    # VERDICT r4 item 5: the LISTED intersect kernel (prepass lists + DMA
-    # double-buffering + early-stop) composed inside shard_map, interpret
-    # mode, must reproduce the jnp sharded render
-    pack, cfg = setup
-    ref = ShardedRenderer(pack, cfg, mesh=make_mesh(4))
-    pal = ShardedRenderer(
-        pack, cfg, mesh=make_mesh(4), use_pallas=True, pallas_interpret=True,
-        intersect_mode="listed",
+        pack, cfg, mesh=make_mesh(4),
+        paths=Paths(intersect=intersect, march=march, interpret=True),
     )
     a = np.asarray(ref.render_frame(3)["bmode"])
     b = np.asarray(pal.render_frame(3)["bmode"])
     np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
 
 
-def test_sharded_pallas_scanconv_matches(setup):
-    # VERDICT r4 item 5: the MXU scan-conversion kernel under shard_map
-    # (interpret, precision=highest -> f32-exact vs imaging.scan_convert)
-    pack, cfg = setup
-    ref = ShardedRenderer(pack, cfg, mesh=make_mesh(4))
-    pal = ShardedRenderer(
-        pack, cfg, mesh=make_mesh(4), use_pallas=False,
-        use_pallas_scanconv=True, pallas_interpret=True,
-    )
-    a = np.asarray(ref.render_frame(4)["bmode"])
-    b = np.asarray(pal.render_frame(4)["bmode"])
-    # the kernel clamps epsilon-negatives to 0 (B-mode is non-negative)
-    np.testing.assert_allclose(np.maximum(a, 0.0), b, rtol=1e-5, atol=1e-6)
-
-
-def test_sharded_all_kernels_composition(setup):
-    # every Pallas kernel the production path uses — listed intersect,
-    # march, MXU scanconv — in ONE shard_map composition (interpret)
-    pack, cfg = setup
-    ref = ShardedRenderer(pack, cfg, mesh=make_mesh(4))
-    pal = ShardedRenderer(
-        pack, cfg, mesh=make_mesh(4), use_pallas=True, pallas_interpret=True,
-        intersect_mode="listed", use_pallas_scanconv=True,
-    )
-    a = np.asarray(ref.render_frame(5)["bmode"])
-    b = np.asarray(pal.render_frame(5)["bmode"])
-    np.testing.assert_allclose(np.maximum(a, 0.0), b, rtol=1e-4, atol=1e-5)
-
-
 def test_2d_mesh_matches_single_chip(setup):
     # rays x samples mesh: sample axis is a pure psum reduction; global
-    # per-path keys keep it bitwise equal to the single-chip render
+    # per-path keys keep it equal to the single-device render
     from mcray_tpu.parallel.shard import ShardedRenderer2D, make_mesh_2d
 
     pack, cfg = setup  # 64 elements x 2 samples -> mesh (4, 2)

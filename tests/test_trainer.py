@@ -34,7 +34,6 @@ def _render_fn(sim):
             key, materials,
             jnp.asarray(sim.pack.transducer_position),
             jnp.asarray(sim.pack.transducer_angles),
-            hash(sim.cfg),
         )
         return out["bmode"]
     return f

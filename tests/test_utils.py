@@ -51,27 +51,3 @@ def test_fit_checkpoint_roundtrip(tmp_path):
         __import__("jax").tree_util.tree_leaves(state.opt_state),
     ):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b))
-
-
-def test_chained_runner_executes_serially():
-    """benchmarking.chained_runner: the scan must run fn `inner` times with
-    a live data dependence (the carry changes per iteration) and return a
-    value XLA cannot constant-fold."""
-    import jax
-    import jax.numpy as jnp
-
-    from mcray_tpu.utils.benchmarking import chained_runner, time_device
-
-    calls = {"n": 0}
-
-    def fn(x):
-        calls["n"] += 1  # trace-time only; proves perturb wiring
-        return jnp.sum(x * x)
-
-    run = chained_runner(fn, lambda c, x: (x + c * 1e-3,), inner=5)
-    x = jnp.arange(8.0)
-    out1 = float(run(jnp.float32(0.0), x))
-    out2 = float(run(jnp.float32(1.0), x))
-    assert out1 != out2  # the seed perturbs the chain
-    stats = time_device(run, (x,), inner=5, reps=3)
-    assert stats["best"] > 0 and len(stats["reps"]) == 3
